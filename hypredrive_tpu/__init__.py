@@ -1,7 +1,7 @@
-"""hypredrive_tpu — a TPU-native sparse linear-solver framework.
+"""hypredrive_tpu — a JAX sparse linear-solver framework.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capability surface of
-hypre-space/hypredrive (see /root/reference): YAML-configured Krylov solvers
+A from-scratch JAX/XLA rebuild of the capability surface of
+hypre-space/hypredrive: YAML-configured Krylov solvers
 (PCG/GMRES/FGMRES/BiCGSTAB) with AMG/MGR/ILU/FSAI/Schwarz/Chebyshev/Jacobi
 preconditioners over row-partitioned distributed CSR matrices, plus the
 surrounding orchestration: stats, presets, precon reuse, sequence handling,
@@ -10,7 +10,8 @@ scheduled dumps, and an HYPREDRV-style lifecycle API.
 Unlike the reference (a C driver delegating numerics to hypre), this package
 implements the numerics natively: setup phases (coarsening, interpolation,
 RAP, factorizations) run on host in numpy/scipy; solve phases are jitted JAX
-running on TPU with `shard_map` row sharding for multi-chip execution.
+running on the accelerator (an NVIDIA GPU) with `shard_map` row sharding
+for multi-device execution.
 
 Reference parity citations use the form `ref: <file>:<line>` pointing into
 the hypredrive source tree.

@@ -28,14 +28,11 @@ def _print_banner():
     now = time.strftime("%Y-%m-%d %H:%M:%S")
     print(f"Date and time: {now}\n")
     print(f"Using {library_banner()}\n")
-    try:
-        import jax
+    import jax
 
-        n = jax.device_count()
-        kind = jax.devices()[0].device_kind
-        print(f"Running on {n} device(s) [{kind}]")
-    except Exception:
-        print("Running on 1 device")
+    dev = jax.devices()[0]
+    print(f"Running on {jax.device_count()} device(s) "
+          f"[{dev.platform}: {dev.device_kind}]")
 
 
 def parse_argv(argv: List[str]):

@@ -35,15 +35,20 @@ GENERAL_SCHEMA = Schema("general", {
     "use_millisec": F("bool", False, help="report times in ms instead of s"),
     "device_lazy_init": F("bool", False),
     "exec_policy": F("enum", 1, V.EXEC_POLICY,
-                     help="host (CPU backend) or device (TPU) execution"),
-    "use_vendor_spgemm": F("bool", False, help="compat no-op on TPU"),
-    "use_vendor_spmv": F("bool", False, help="compat no-op on TPU"),
-    "dev_pool_size": F("float", 0.0, help="GB; compat hint, XLA manages HBM"),
+                     help="host (CPU backend) or device (accelerator) "
+                          "execution"),
+    "use_vendor_spgemm": F("bool", False,
+                           help="accepted and ignored (no vendor SpGEMM)"),
+    "use_vendor_spmv": F("bool", False,
+                         help="accepted and ignored (no vendor SpMV)"),
+    "dev_pool_size": F("float", 0.0,
+                       help="GB; accepted and ignored, XLA manages device "
+                            "memory"),
     "uvm_pool_size": F("float", 0.0),
     "host_pool_size": F("float", 0.0),
     "pinned_pool_size": F("float", 0.0),
     "dtype": F("str", "float64",
-               help="TPU extension: solve dtype (float64/float32)"),
+               help="extension: solve dtype (float64/float32)"),
 }, help="global driver settings")
 
 # ---------------------------------------------------------------------------
@@ -103,7 +108,7 @@ LINEAR_SYSTEM_SCHEMA = Schema("linear_system", {
     "eigspec": EIGSPEC_SCHEMA,
     "generate": Schema("generate", {
         "kind": F("str", "", help="laplacian_7pt|laplacian_27pt|laplacian_5pt|"
-                                  "elasticity|multiphysics (TPU extension: "
+                                  "elasticity|multiphysics (extension: "
                                   "deterministic in-memory systems)"),
         "nx": F("int", 10),
         "ny": F("int", 0),
@@ -111,7 +116,7 @@ LINEAR_SYSTEM_SCHEMA = Schema("linear_system", {
         "ncell": F("int", 100),
         "ndof": F("int", 3),
         "seed": F("int", 7),
-    }, help="generated test systems (TPU extension; reference datasets "
+    }, help="generated test systems (extension; reference datasets "
             "are external Zenodo downloads, ref: data/README.md)"),
     "dof_labels": Schema("dof_labels", {}, open_keys=True,
                          help="symbolic dof-name → int map "
@@ -217,7 +222,8 @@ ILU_SCHEMA = Schema("ilu", {
     "fill_level": F("int", 0),
     "reordering": F("int", 0),
     "tri_solve": F("bool", True,
-                   help="exact triangular solve vs Jacobi sweeps (TPU prefers off)"),
+                   help="exact triangular solve vs Jacobi sweeps "
+                        "(off keeps the apply to SpMVs)"),
     "lower_jac_iters": F("int", 5),
     "upper_jac_iters": F("int", 5),
     "max_row_nnz": F("int", 200),
@@ -255,7 +261,7 @@ AMG_SCHEMA = Schema("amg", {
                               "pattern only)"),
     "cycle_type": F("int", 1,
                     help="multigrid cycle: 1=V, 2=W (hypre "
-                         "BoomerAMGSetCycleType convention; TPU extension "
+                         "BoomerAMGSetCycleType convention; extension "
                          "key — the reference fixes V)"),
     "interpolation": Schema("interpolation", {
         "prolongation_type": F("enum", 6, V.AMG_PROLONGATION),
@@ -267,7 +273,7 @@ AMG_SCHEMA = Schema("amg", {
     }, help="interpolation/restriction (ref: amg.c:117-127)"),
     "coarsening": Schema("coarsening", {
         # Reference GPU default is PMIS/mod_rap2 (ref: amg.c:135-156);
-        # TPU is a device target, so PMIS is the default here too.
+        # this is a device code, so PMIS is the default here too.
         "type": F("enum", 8, V.AMG_COARSENING),
         "rap2": F("bool", False),
         "mod_rap2": F("bool", True),
@@ -282,7 +288,7 @@ AMG_SCHEMA = Schema("amg", {
         "max_levels": F("int", 25),
         "max_row_sum": F("float", 0.9),
         "strong_th": F("float", 0.25),
-        # TPU extension: offset for the deterministic splitmix64 PMIS
+        # Extension: offset for the deterministic splitmix64 PMIS
         # measure hash.  hypre's PMIS measures are rank-local RNG draws,
         # so its multi-rank grids are unreproducible bit-for-bit on one
         # chip; this knob selects among the equivalent random-grid
@@ -302,7 +308,7 @@ AMG_SCHEMA = Schema("amg", {
     "relaxation": Schema("relaxation", {
         "type": F("int", -1),
         # Reference GPU default is l1-Jacobi (18, ref: amg.c:180-196);
-        # on TPU Chebyshev(2) measures strictly better iteration counts
+        # Chebyshev(2) gives strictly better iteration counts
         # (matches/beats the reference's hybrid-GS counts) at the same
         # SpMV cost shape, so it is the device default here.
         "down_type": F("enum", 16, V.AMG_RELAX),
@@ -401,7 +407,7 @@ ADS_SCHEMA = Schema("ads", {
 
 JACOBI_SCHEMA = Schema("jacobi", {
     "max_iter": F("int", 1),
-    "l1": F("bool", True, help="l1-scaled Jacobi (TPU-preferred)"),
+    "l1": F("bool", True, help="l1-scaled Jacobi (device default)"),
 }, help="(ref: precon.c:256-289 — AMG as single-level Jacobi relaxation)")
 
 GS_SCHEMA = Schema("gauss-seidel", {
@@ -413,7 +419,7 @@ GS_SCHEMA = Schema("gauss-seidel", {
 
 PRECON_SCHEMAS = {
     # chebyshev is a relaxation type in the reference; exposed as a
-    # standalone preconditioner here (TPU extension — it is the natural
+    # standalone preconditioner here (extension — it is the natural
     # device smoother).
     "chebyshev": CHEBY_SCHEMA,
     "amg": AMG_SCHEMA,

@@ -4,7 +4,7 @@ The reference keeps a sticky, process-global 30-bit error bitfield plus a
 message queue, with `HYPREDRV_SAFE_CALL` aborting on error
 (ref: include/internal/error.h:16-80, src/internal/error.c:555-661).
 
-The TPU framework is Python-native, so the primary error channel is
+This framework is Python-native, so the primary error channel is
 exceptions.  For API parity we keep the same error *codes* as a bitfield
 (IntFlag), attach them to the exception, and provide a sticky module-level
 error state with `describe`/`clear` mirroring

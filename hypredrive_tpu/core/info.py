@@ -1,9 +1,9 @@
 """System information report.
 
 The reference's ``-i`` report enumerates hosts, CPUs, GPUs, bindings and
-loaded libraries (ref: src/internal/info.c).  The TPU-native equivalent
-reports the JAX platform, device inventory/topology, process layout, and
-library versions.
+loaded libraries (ref: src/internal/info.c).  The JAX equivalent reports
+the platform, device inventory (GPU compute capability and memory),
+process layout, and library versions.
 """
 
 from __future__ import annotations
@@ -45,25 +45,19 @@ def system_info() -> str:
         lines.append(f"devices         : {len(devs)} total, "
                      f"{jax.local_device_count()} local")
         for d in devs[:16]:
-            coords = getattr(d, "coords", None)
-            core = getattr(d, "core_on_chip", None)
             extra = ""
-            if coords is not None:
-                extra = f"  coords={coords}"
-                if core is not None:
-                    extra += f" core={core}"
+            cc = getattr(d, "compute_capability", None)
+            if cc is not None:
+                extra = f"  compute capability {cc}"
             lines.append(f"  [{d.id}] {d.device_kind} (process {d.process_index})"
                          f"{extra}")
         if len(devs) > 16:
             lines.append(f"  ... and {len(devs) - 16} more")
-        try:
-            mem = devs[0].memory_stats()
-            if mem and "bytes_limit" in mem:
-                lines.append(
-                    f"HBM per device  : {mem['bytes_limit'] / 2**30:.1f} GiB"
-                )
-        except Exception:
-            pass
+        mem = devs[0].memory_stats()   # None on the CPU backend
+        if mem and "bytes_limit" in mem:
+            lines.append(
+                f"memory limit    : {mem['bytes_limit'] / 2**30:.1f} GiB "
+                "per device")
     except Exception as exc:  # pragma: no cover - jax import issues
         lines.append(f"jax             : unavailable ({exc})")
 
@@ -78,4 +72,4 @@ def library_banner() -> str:
     """One-line version banner (ref: hypredrv_PrintLibInfo, info.c:4596)."""
     from ..version import __version__
 
-    return f"hypredrive-tpu v{__version__} (JAX/XLA/Pallas TPU-native)"
+    return f"hypredrive-tpu v{__version__} (JAX/XLA)"

@@ -27,19 +27,6 @@ _lib = None
 _tried = False
 
 
-class _PlanBuf(ctypes.Structure):
-    _fields_ = [
-        ("np_", ctypes.c_int64),
-        ("pass_tile", ctypes.POINTER(ctypes.c_int32)),
-        ("pass_q0", ctypes.POINTER(ctypes.c_int32)),
-        ("pass_first", ctypes.POINTER(ctypes.c_int32)),
-        ("sub", ctypes.POINTER(ctypes.c_int8)),
-        ("lane", ctypes.POINTER(ctypes.c_int8)),
-        ("val", ctypes.POINTER(ctypes.c_double)),
-        ("err", ctypes.c_char * 256),
-    ]
-
-
 class _IJBuf(ctypes.Structure):
     _fields_ = [
         ("ilower", ctypes.c_int64),
@@ -60,7 +47,8 @@ def _build() -> bool:
     if not os.path.exists(src):
         return False
     try:
-        subprocess.run(["make", "-C", _NATIVE_DIR, "-s"],
+        subprocess.run(["make", "-C", _NATIVE_DIR, "-s",
+                        "libhypredrv_io.so"],
                        check=True, capture_output=True, timeout=120)
         return os.path.exists(_SO)
     except Exception:
@@ -101,25 +89,6 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.hdrv_write_ij_vector_ascii.argtypes = [
             ctypes.c_char_p, ctypes.c_int64,
             ctypes.POINTER(ctypes.c_double), ctypes.c_int64]
-        lib.hdrv_plan_begin.restype = ctypes.c_void_p
-        lib.hdrv_plan_begin.argtypes = [
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_double), ctypes.c_int64, ctypes.c_int64]
-        lib.hdrv_plan_np.restype = ctypes.c_int64
-        lib.hdrv_plan_np.argtypes = [ctypes.c_void_p]
-        lib.hdrv_plan_group.restype = ctypes.c_int64
-        lib.hdrv_plan_group.argtypes = [ctypes.c_void_p]
-        lib.hdrv_plan_err.restype = ctypes.c_char_p
-        lib.hdrv_plan_err.argtypes = [ctypes.c_void_p]
-        lib.hdrv_plan_fill_packed.restype = None
-        lib.hdrv_plan_fill_packed.argtypes = [
-            ctypes.c_void_p,
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
-            ctypes.POINTER(ctypes.c_int8),
-            ctypes.c_void_p, ctypes.c_int]
-        lib.hdrv_plan_end.restype = None
-        lib.hdrv_plan_end.argtypes = [ctypes.c_void_p]
         # AMG setup kernels (native/src/amg_setup.cpp)
         i64p = ctypes.POINTER(ctypes.c_int64)
         i32p = ctypes.POINTER(ctypes.c_int32)
@@ -173,55 +142,6 @@ def get_lib() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_int8), ctypes.c_int64]
         _lib = lib
         return _lib
-
-
-def build_gather_plan(rows, cols, vals, n_rows, n_cols, n_row_tiles):
-    """Native pass planner; returns the arrays of a GatherPlan or None.
-
-    (pass_tile, pass_first, q0, slot, elane, evals) — see
-    ops/gather_plan.py for semantics.  Two-phase: the C side sorts and
-    counts, then fills numpy-allocated output buffers exactly once; the
-    entries come back PACKED (slot-sorted) so no dense tiles are ever
-    materialized on the host."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    rows = np.ascontiguousarray(rows, np.int64)
-    cols = np.ascontiguousarray(cols, np.int64)
-    vals64 = np.ascontiguousarray(vals, np.float64)
-    want_f32 = np.asarray(vals).dtype == np.float32
-    h = lib.hdrv_plan_begin(
-        rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        cols.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        vals64.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-        len(rows), int(n_row_tiles))
-    if not h:
-        return None
-    try:
-        NP = lib.hdrv_plan_np(h)
-        err = lib.hdrv_plan_err(h)
-        if err:
-            return None        # fall back to the numpy planner
-        if NP <= 0:
-            return None
-        E = len(rows)
-        pt = np.zeros(NP, np.int32)
-        pf = np.zeros(NP, np.int32)
-        q0 = np.zeros((NP, 8), np.int32)
-        slot = np.zeros(E, np.int32)
-        elane = np.zeros(E, np.int8)
-        evals = np.zeros(E, np.float32 if want_f32 else np.float64)
-        i32p = ctypes.POINTER(ctypes.c_int32)
-        i8p = ctypes.POINTER(ctypes.c_int8)
-        lib.hdrv_plan_fill_packed(
-            h, pt.ctypes.data_as(i32p), pf.ctypes.data_as(i32p),
-            q0.ctypes.data_as(i32p), slot.ctypes.data_as(i32p),
-            elane.ctypes.data_as(i8p),
-            evals.ctypes.data_as(ctypes.c_void_p), int(want_f32))
-        G = int(lib.hdrv_plan_group(h))
-        return pt, pf, q0, slot, elane, evals, G
-    finally:
-        lib.hdrv_plan_end(h)
 
 
 def read_matrix_ascii(path: str

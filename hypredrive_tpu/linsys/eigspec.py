@@ -2,7 +2,7 @@
 
 Reference: src/internal/eigspec.c — gathers A (or M⁻¹A via a precon-apply
 callback) to a dense matrix on rank 0, runs dgeev/dsyev, writes
-eigenvalues ASCII + eigenvectors binary.  TPU-native: densify on host and
+eigenvalues ASCII + eigenvectors binary.  Here: densify on host and
 use jnp.linalg.eig/eigh (small systems only — the feature is explicitly a
 diagnostic for modest n).
 """

@@ -27,6 +27,7 @@ import jax.numpy as jnp
 
 from ..core.errors import HypredrvError, ErrorCode
 from ..ops.device_matrix import EllMatrix
+from ..ops.vectors import norm2
 
 
 @dataclass
@@ -47,7 +48,7 @@ class ScalingContext:
         dtype = system.dtype
 
         if stype == 0:  # rhs_l2
-            bnorm = float(jnp.sqrt(jnp.vdot(system.b, system.b)))
+            bnorm = float(norm2(system.b))
             s = 1.0 / bnorm if bnorm > 0 else 1.0
             sl = jnp.full(n, s, dtype=dtype)
             return cls(sl=sl, sr=None)

@@ -4,7 +4,7 @@ Reference equivalent: src/internal/linsys.c (hypredrv_LinearSystemReadMatrix
 :1123, RHS modes :1779-1842, init-guess modes :376-382, filename resolution
 :833-866) orchestrated by HYPREDRV_LinearSystemBuild (src/HYPREDRV.c:1932).
 
-TPU extension: ``linear_system.generate`` creates deterministic in-memory
+Extension: ``linear_system.generate`` creates deterministic in-memory
 systems (7/27-pt Laplacians, elasticity, multiphysics chains) because the
 reference's Zenodo datasets are external; ps3d10pt7 ≡ generate.kind
 laplacian_7pt nx=10.
@@ -25,6 +25,7 @@ from ..core.logging import log
 from ..ops import csr as csr_ops
 from ..ops.device_matrix import EllMatrix
 from ..io import ij as ij_io
+from ..ops.vectors import norm2
 
 
 def _resolve_dtype(general) -> jnp.dtype:
@@ -119,9 +120,8 @@ class LinearSystem:
         self.device = _resolve_device(general, ls)
         self.dof_labels = dict(ls.get("dof_labels") or {})
 
-        # Arrays must be *created* on the target device: a post-hoc
-        # device_put from an accelerator forces a device→host readback,
-        # which is pathologically slow through remote-TPU tunnels.
+        # arrays are created on the target device (no post-hoc
+        # device_put copies)
         import contextlib
 
         device_ctx = (jax.default_device(self.device)
@@ -336,8 +336,8 @@ class LinearSystem:
             self.x = project_nullspace(self.x, self.nullspace)
         if self.xref is not None:
             err = self.x - self.xref
-            e2 = float(jnp.sqrt(jnp.vdot(err, err)))
-            xn = float(jnp.sqrt(jnp.vdot(self.xref, self.xref)))
+            e2 = float(norm2(err))
+            xn = float(norm2(self.xref))
             rel = e2 / xn if xn > 0 else e2
             log(1, f"error norms vs reference solution: "
                    f"L2 {e2:.6e} (rel {rel:.6e})")
@@ -359,7 +359,7 @@ class LinearSystem:
 
 
 def _generate_matrix(gen):
-    """TPU extension: deterministic in-memory systems."""
+    """Extension: deterministic in-memory systems."""
     kind = gen.get("kind", "")
     nx = int(gen.get("nx", 10))
     ny = int(gen.get("ny", 0)) or None

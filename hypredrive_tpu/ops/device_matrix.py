@@ -1,17 +1,18 @@
 """Device-resident sparse matrix: DIA + padded ELL + COO tail hybrid.
 
-TPU-first design (this replaces hypre's CSR SpMV — the #1 hot kernel —
-with an XLA-friendly layout):
+This replaces hypre's CSR SpMV — the #1 hot kernel — with layouts that
+XLA compiles to streaming loops:
 
-* **DIA fast path.** XLA's TPU gather runs on the scalar core and is
-  ~50× slower than VPU streaming.  Most PDE operators are dominated by a
-  handful of diagonals; those entries are stored dense-by-diagonal and
-  applied as shifted elementwise multiply-adds over contiguous slices —
-  pure VPU at HBM bandwidth (measured 48× over the gather path on
-  v5e for 7-pt Laplacians).
+* **DIA.** Most PDE operators are dominated by a handful of diagonals;
+  those entries are stored dense-by-diagonal and applied as shifted
+  elementwise multiply-adds over contiguous slices, which XLA fuses
+  into one loop that streams D+2 vectors.
 * **ELL remainder.** Entries off the chosen diagonals live in a padded
   (n, K) gather layout; the rare long rows spill to a COO tail
   (segment_sum).
+* **Dense** storage for tiny operators (coarse AMG levels) on
+  accelerator backends, where one matrix-vector product costs less than
+  the launches of the sparse parts.
 * **Static shapes everywhere**, so one XLA compilation serves a whole
   sequence of same-pattern systems (pairs with lsseq pattern dedup).
 * Pad slots use column 0 / value 0 — no masking in the inner loops.
@@ -19,8 +20,7 @@ with an XLA-friendly layout):
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from functools import partial
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import numpy as np
@@ -28,16 +28,26 @@ import jax
 import jax.numpy as jnp
 import scipy.sparse as sp
 
+from .vectors import HIGHEST
+
 # diagonals covering at least this fraction of rows go to the DIA part
 DIA_MIN_FRAC = 0.25
 DIA_MAX_DIAGS = 48
 
-# operators at most this many ELEMENTS dense (rows*cols) are stored as
+# operators of at most this many ELEMENTS (rows*cols) are stored as
 # plain dense arrays on accelerator backends: the coarse AMG levels
-# (n <= ~250) cost more in gather-kernel invocation overhead than a
-# single MXU/VPU matmul row (measured r5: 4-5 us/matvec for a 192-row
-# operator vs ~1 us dense)
+# (n <= ~250) cost more in launches of the sparse parts than one dense
+# matrix-vector product.  0 turns the dense layout off.
 DENSE_MAX_ELEMENTS = 1 << 16
+
+
+def dense_layout_default() -> bool:
+    """Layout rule: tiny operators go dense on any accelerator backend
+    (the ambient default device's platform, else the default backend);
+    the CPU keeps the sparse layouts."""
+    dev = jax.config.jax_default_device
+    plat = getattr(dev, "platform", dev) or jax.default_backend()
+    return str(plat) != "cpu"
 
 
 def _round_up(x: int, m: int) -> int:
@@ -80,41 +90,26 @@ class EllMatrix:
     nnz: int
     dia_data: Optional[jnp.ndarray] = None
     dia_offsets: Tuple[int, ...] = ()
-    gop: Optional[object] = None  # ops.pallas_spmv.GatherSpMV for the
-                                  # non-diagonal part (TPU fast path)
-    # kernel-layout copy of dia_data ((D, S, 128), see pallas_dia) built
-    # once at construction: the (D, n) -> (D, S, 128) reshape is a real
-    # tile relayout on TPU, and XLA does not hoist it out of solver
-    # loops — computing it per matvec cost ~25% of the SpMV (round 5)
-    dia3: Optional[jnp.ndarray] = None
     # dense storage for tiny operators (see DENSE_MAX_ELEMENTS); when
     # set, every kernel short-circuits to plain jnp ops
     dense: Optional[jnp.ndarray] = None
 
     def tree_flatten(self):
-        gch = self.gop.tree_children() if self.gop is not None else ()
         children = (self.cols, self.vals, self.tail_rows, self.tail_cols,
-                    self.tail_vals, self.dia_data, self.dia3,
-                    self.dense) + tuple(gch)
+                    self.tail_vals, self.dia_data, self.dense)
         # nnz is pure bookkeeping (stats/summaries) — wrap it so pytree
         # aux equality ignores its value and same-shape hierarchies from
         # a sequence share one jit cache entry
-        aux = (self.shape, _TraceNeutralInt(self.nnz), self.dia_offsets,
-               self.gop)
+        aux = (self.shape, _TraceNeutralInt(self.nnz), self.dia_offsets)
         return children, aux
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        cols, vals, tr, tc, tv, dia, dia3, dense = children[:8]
-        shape, nnz, dia_offsets, gop = aux
+        cols, vals, tr, tc, tv, dia, dense = children
+        shape, nnz, dia_offsets = aux
         nnz = int(nnz)    # unwrap _TraceNeutralInt (its __eq__ is aux-only)
-        if gop is not None:
-            import copy
-
-            gop = copy.copy(gop)
-            gop.set_children(children[8:])
         return cls(cols, vals, tr, tc, tv, shape, nnz, dia, dia_offsets,
-                   gop, dia3, dense)
+                   dense)
 
     # -- construction -----------------------------------------------------
 
@@ -126,32 +121,28 @@ class EllMatrix:
                  min_tail: int = 0, layout: str = "auto") -> "EllMatrix":
         """``force_dia_offsets``/``k``/``min_tail`` pin the static
         structure (used by the distributed wrapper to keep shards
-        uniform) and imply the ELL layout.
+        uniform) and imply the sparse layout.
 
-        ``layout``: "auto" stores the non-diagonal remainder as a
-        Pallas gather plan (ops/pallas_spmv.py — the TPU fast path for
-        AMG coarse operators); "ell" keeps the padded gather layout."""
+        ``layout``: "auto" applies :func:`dense_layout_default` to tiny
+        operators; "dense" forces dense storage; "ell" keeps the sparse
+        DIA+ELL+COO layout."""
         if force_dia_offsets is not None or k is not None or min_tail:
             layout = "ell"
         A = sp.csr_matrix(A)
         n_r, n_c = A.shape
         if layout == "dense" or (
                 layout == "auto" and n_r * n_c <= DENSE_MAX_ELEMENTS
-                and A.nnz > 0):
-            from .pallas_spmv import _backend_supports_pallas
-
-            if layout == "dense" or _backend_supports_pallas():
-                e = np.empty(0)
-                return cls(
-                    cols=jnp.asarray(np.zeros((n_r, 0), np.int32)),
-                    vals=jnp.asarray(np.zeros((n_r, 0)), dtype=dtype),
-                    tail_rows=jnp.asarray(e, jnp.int32),
-                    tail_cols=jnp.asarray(e, jnp.int32),
-                    tail_vals=jnp.asarray(e, dtype),
-                    shape=(n_r, n_c), nnz=int(A.nnz),
-                    dense=jnp.asarray(np.asarray(A.todense()),
-                                      dtype=dtype),
-                )
+                and A.nnz > 0 and dense_layout_default()):
+            e = np.empty(0)
+            return cls(
+                cols=jnp.asarray(np.zeros((n_r, 0), np.int32)),
+                vals=jnp.asarray(np.zeros((n_r, 0)), dtype=dtype),
+                tail_rows=jnp.asarray(e, jnp.int32),
+                tail_cols=jnp.asarray(e, jnp.int32),
+                tail_vals=jnp.asarray(e, dtype),
+                shape=(n_r, n_c), nnz=int(A.nnz),
+                dense=jnp.asarray(np.asarray(A.todense()), dtype=dtype),
+            )
         # scipy caches the canonical-format check — skipping the
         # sort/dedup passes when already canonical (RAP/interp outputs
         # are) was worth ~0.2 s of the 64³ AMG setup
@@ -221,45 +212,6 @@ class EllMatrix:
             r_cols = cols_all[rest]
             r_vals = vals_all[rest]
 
-        if layout == "auto":
-            from .pallas_spmv import _backend_supports_pallas
-
-            # the gather plan only pays off on the Mosaic path; on CPU
-            # (tests) ELL+tail is both faster to build and faster to
-            # run — skip plan construction entirely.  f64 on a Mosaic
-            # backend uses the double-single (split-f32) kernel variant.
-            if not _backend_supports_pallas():
-                layout = "ell"
-        if layout == "auto":
-            from .gather_plan import build_plan
-            from .pallas_spmv import GatherSpMV
-
-            plan = build_plan(r_rows, r_cols, r_vals, n_rows, n_cols)
-            if plan.num_passes:
-                # shape-stability bucket: pad the pass count to the next
-                # multiple of 128 so small pattern drifts across a
-                # sequence land on the same compiled kernel signature
-                # (no-op passes cost ~60 ns each; pairs with the
-                # bucketed hierarchy level sizes)
-                from .gather_plan import pad_plan
-
-                plan = pad_plan(plan, -(-plan.num_passes // 128) * 128)
-            gop = GatherSpMV(plan, dtype=dtype) if plan.num_passes else None
-            e = np.empty(0)
-            return cls(
-                cols=jnp.asarray(np.zeros((n_rows, 0), np.int32)),
-                vals=jnp.asarray(np.zeros((n_rows, 0)), dtype=dtype),
-                tail_rows=jnp.asarray(e, jnp.int32),
-                tail_cols=jnp.asarray(e, jnp.int32),
-                tail_vals=jnp.asarray(e, dtype),
-                shape=(n_rows, n_cols),
-                nnz=int(A.nnz),
-                dia_data=(jnp.asarray(dia_data, dtype=dtype)
-                          if dia_data is not None else None),
-                dia_offsets=dia_offsets,
-                gop=gop,
-            ).with_dia3()
-
         rest_counts = np.bincount(r_rows, minlength=n_rows)
         max_nnz = int(rest_counts.max(initial=0))
         k_auto = k is None
@@ -316,7 +268,7 @@ class EllMatrix:
             dia_data=(jnp.asarray(dia_data, dtype=dtype)
                       if dia_data is not None else None),
             dia_offsets=dia_offsets,
-        ).with_dia3()
+        )
 
     @property
     def dtype(self):
@@ -336,71 +288,28 @@ class EllMatrix:
 
     # -- kernels ----------------------------------------------------------
 
-    def _dia_pallas(self):
-        """Static DiaSpMV layout for the Pallas DIA kernel (None when
-        the backend/dtype/size rule it out)."""
-        if self.dia_data is None or not self.dia_offsets:
-            return None
-        from .pallas_spmv import _backend_supports_pallas
-
-        if not _backend_supports_pallas() \
-                or jnp.dtype(self.dtype).itemsize != 4:
-            return None
-        from .pallas_dia import DiaSpMV
-
-        ds = DiaSpMV(self.dia_offsets, self.shape[0], self.shape[1],
-                     self.dtype)
-        return ds if ds.fits else None
-
-    def with_dia3(self) -> "EllMatrix":
-        """Populate the kernel-layout diagonal copy (no-op when the
-        Pallas DIA path does not apply or it already exists)."""
-        if self.dia3 is not None:
-            return self
-        ds = self._dia_pallas()
-        if ds is None:
-            return self
-        import dataclasses
-
-        return dataclasses.replace(self, dia3=ds.pad_dia(self.dia_data))
-
     def matvec(self, x: jnp.ndarray) -> jnp.ndarray:
         """y = A @ x (jit-safe)."""
         n_rows, n_cols = self.shape
         if self.dense is not None:
             return jnp.dot(self.dense, x.astype(self.dense.dtype),
-                           preferred_element_type=self.dense.dtype
-                           ).astype(x.dtype)
+                           precision=HIGHEST).astype(x.dtype)
         y = None
         if self.dia_data is not None:
-            ds = self._dia_pallas()
-            if ds is not None:
-                # VMEM-resident Pallas DIA kernel: (D+2)·4 B/row HBM
-                # traffic vs the XLA path's per-diagonal materialized
-                # shifts (measured ~7x on v5e fine grids)
-                dia3 = self.dia3 if self.dia3 is not None \
-                    else ds.pad_dia(self.dia_data)
-                y = ds(dia3, x)
-            else:
-                # pad x so every shifted window is a static in-bounds
-                # slice
-                lo = max(0, -min(self.dia_offsets))
-                hi = max(0, max(self.dia_offsets) + n_rows - n_cols)
-                xp = x
-                if lo or hi:
-                    xp = jnp.concatenate([
-                        jnp.zeros(lo, x.dtype), x, jnp.zeros(hi, x.dtype)])
-                y = jnp.zeros(n_rows, x.dtype)
-                for i, off in enumerate(self.dia_offsets):
-                    start = lo + off
-                    y = y + self.dia_data[i] * jax.lax.dynamic_slice(
-                        xp, (start,), (n_rows,))
-        if self.gop is not None:
-            gy = self.gop(x)
-            y = gy if y is None else y + gy
+            # pad x so every shifted window is a static in-bounds slice
+            lo = max(0, -min(self.dia_offsets))
+            hi = max(0, max(self.dia_offsets) + n_rows - n_cols)
+            xp = x
+            if lo or hi:
+                xp = jnp.concatenate([
+                    jnp.zeros(lo, x.dtype), x, jnp.zeros(hi, x.dtype)])
+            y = jnp.zeros(n_rows, x.dtype)
+            for i, off in enumerate(self.dia_offsets):
+                y = y + self.dia_data[i] * jax.lax.dynamic_slice(
+                    xp, (lo + off,), (n_rows,))
         if self.has_ell:
             gathered = x[self.cols]                       # (n, K) gather
-            ell_y = jnp.einsum("rk,rk->r", self.vals, gathered)
+            ell_y = jnp.sum(self.vals * gathered, axis=1)
             y = ell_y if y is None else y + ell_y
         if y is None:
             y = jnp.zeros(n_rows, x.dtype)
@@ -421,8 +330,6 @@ class EllMatrix:
         d = jnp.zeros(n, self.dtype)
         if self.dia_data is not None and 0 in self.dia_offsets:
             d = d + self.dia_data[self.dia_offsets.index(0)]
-        if self.gop is not None:
-            d = d + self.gop.diagonal_contrib()
         if self.has_ell:
             row_ids = jnp.arange(n, dtype=self.cols.dtype)[:, None]
             d = d + jnp.sum(
@@ -441,8 +348,6 @@ class EllMatrix:
         y = jnp.zeros(self.shape[0], self.dtype)
         if self.dia_data is not None:
             y = y + jnp.sum(jnp.abs(self.dia_data), axis=0)
-        if self.gop is not None:
-            y = y + self.gop.l1_contrib()
         if self.has_ell:
             y = y + jnp.sum(jnp.abs(self.vals), axis=1)
         if self.has_tail:
@@ -490,10 +395,9 @@ class EllMatrix:
                     parts.append(dia[i] * jax.lax.dynamic_slice(
                         srp, (lo + off,), (n_rows,)))
                 dia = jnp.stack(parts)
-        gop = self.gop.scaled(sl, sr) if self.gop is not None else None
         return EllMatrix(self.cols, vals, self.tail_rows, self.tail_cols,
                          tail_vals, self.shape, self.nnz, dia,
-                         self.dia_offsets, gop).with_dia3()
+                         self.dia_offsets)
 
     def to_csr(self) -> sp.csr_matrix:
         """Host round-trip (diagnostics / dumps)."""
@@ -513,11 +417,6 @@ class EllMatrix:
                 parts_r.append(r[ok])
                 parts_c.append(c[ok])
                 parts_v.append(dd[i][ok])
-        if self.gop is not None:
-            gr, gc, gv = self.gop.to_coo_host()
-            parts_r.append(gr)
-            parts_c.append(gc)
-            parts_v.append(gv)
         if self.has_ell:
             cols = np.asarray(self.cols)
             vals = np.asarray(self.vals)

@@ -1,31 +1,23 @@
-"""Vector kernels for Krylov solvers.
+"""Vector reductions for Krylov solvers.
 
-Plain jnp ops: under jit with sharded arrays XLA lowers these to
-VPU-resident fused loops and inserts ``psum`` collectives for the
-reductions automatically — the TPU-native replacement for hypre's
-MPI_Allreduce dot products (ref: SURVEY §2.9).
+Plain jnp ops: under jit with sharded arrays XLA fuses these and inserts
+the cross-device reductions automatically — the replacement for hypre's
+MPI_Allreduce dot products (ref: SURVEY §2.9).  Every contraction
+states ``Precision.HIGHEST`` so a float32 dot never runs in a reduced
+(TF32) mode on a GPU.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
+
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def dot(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    return jnp.vdot(a, b)
+    return jnp.vdot(a, b, precision=HIGHEST)
 
 
 def norm2(a: jnp.ndarray) -> jnp.ndarray:
-    return jnp.sqrt(jnp.vdot(a, a))
-
-
-def norm1(a: jnp.ndarray) -> jnp.ndarray:
-    return jnp.sum(jnp.abs(a))
-
-
-def norm_inf(a: jnp.ndarray) -> jnp.ndarray:
-    return jnp.max(jnp.abs(a))
-
-
-def axpy(alpha, x: jnp.ndarray, y: jnp.ndarray) -> jnp.ndarray:
-    return alpha * x + y
+    return jnp.sqrt(dot(a, a))

@@ -1,6 +1,6 @@
 """Distributed execution: device mesh, halo exchange, row-sharded matrices.
 
-TPU-native replacement for the reference's MPI domain decomposition
+JAX replacement for the reference's MPI domain decomposition
 (hypre ParCSR row partitioning + halo exchange; ref: SURVEY §2.9):
 a 1-D ``jax.sharding.Mesh`` over the ``rows`` axis, ``shard_map``-ped SpMV
 with precomputed ``ppermute`` halo schedules, and XLA-inserted ``psum``

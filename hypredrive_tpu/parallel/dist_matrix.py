@@ -5,9 +5,9 @@ EllMatrix`: rows are block-partitioned over a 1-D mesh (the reference's
 ParCSR decomposition, ref: SURVEY §2.9).  Each shard stores a local
 DIA+ELL+COO hybrid whose column indices address the extended local
 vector ``[x_local | halos]`` filled by the static ppermute schedule from
-:mod:`.halo` — so the DIA fast path (shifted VPU multiply-adds instead
-of scalar-core gathers) applies per shard, and halo traffic rides the
-ICI inside the same XLA program.
+:mod:`.halo` — so the DIA path (shifted multiply-adds instead of
+gathers) applies per shard, and the halo exchange is a collective
+inside the same XLA program.
 
 Shard uniformity: all shards share one static structure (union of DIA
 offsets, max ELL width, max tail) so a single shard_map kernel serves
@@ -21,6 +21,7 @@ multi-chip — XLA inserts psum for the dot products.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -68,25 +69,17 @@ class DistEllMatrix:
     nnz: int
     local_max: int                   # padded col-shard size (x_ext locals)
     ext_size: int
-    # per-shard kernel-layout diagonals ((n_shards, D, S, 128), see
-    # pallas_dia.dia3): built once at construction so the shard-local
-    # Pallas DIA matvec on real TPU meshes does not pay the
-    # (D, n) → (D, S, 128) relayout per call (the single-chip fix of
-    # round 5, mirrored for the mesh)
-    dia3: Optional[jnp.ndarray] = None
 
     def tree_flatten(self):
         return ((self.dia_data, self.cols, self.vals, self.tail_rows,
-                 self.tail_cols, self.tail_vals, self.send_idx,
-                 self.dia3),
+                 self.tail_cols, self.tail_vals, self.send_idx),
                 (self.mesh, self.dia_offsets, self.offsets, self.shape,
                  self.orig_shape, self.nnz, self.local_max, self.ext_size))
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        dia, cols, vals, tr, tc, tv, send_idx, dia3 = children
-        return cls(dia, cols, vals, tr, tc, tv, send_idx, *aux,
-                   dia3=dia3)
+        dia, cols, vals, tr, tc, tv, send_idx = children
+        return cls(dia, cols, vals, tr, tc, tv, send_idx, *aux)
 
     @property
     def dtype(self):
@@ -203,47 +196,45 @@ class DistEllMatrix:
             loc.sort_indices()
             locals_remapped.append(loc)
 
-        # pass 1: discover per-shard structure; unify.  max_k/max_t are
-        # bucketed (16-wide ELL steps, 128-slot tails) so same-pattern
-        # systems of a sequence land on one compiled shard signature —
-        # the mesh twin of the single-chip shape-stability buckets.
-        probes = [EllMatrix.from_csr(loc, dtype=dtype, layout="ell")
-                  for loc in locals_remapped]
-        union_offsets = tuple(sorted(set().union(
-            *(set(p.dia_offsets) for p in probes))))
-        max_k = _round_up(max(p.k for p in probes), 16)
-        max_t = max(p.tail_rows.shape[0] for p in probes)
-        if max_t:
-            max_t = max(_round_up(max_t, 128), 128)
+        # the per-shard pieces are staged on the host and each device is
+        # sent only its own slice (staged on the default device, every
+        # shard would pass through the first device)
+        try:
+            staging = jax.default_device(jax.devices("cpu")[0])
+        except RuntimeError:            # JAX runs without a CPU backend
+            staging = contextlib.nullcontext()
+        with staging:
+            # pass 1: discover per-shard structure; unify.  max_k/max_t
+            # are bucketed (16-wide ELL steps, 128-slot tails) so
+            # same-pattern systems of a sequence land on one compiled
+            # shard signature — the mesh twin of the single-chip
+            # shape-stability buckets.
+            probes = [EllMatrix.from_csr(loc, dtype=dtype, layout="ell")
+                      for loc in locals_remapped]
+            union_offsets = tuple(sorted(set().union(
+                *(set(p.dia_offsets) for p in probes))))
+            max_k = _round_up(max(p.k for p in probes), 16)
+            max_t = max(p.tail_rows.shape[0] for p in probes)
+            if max_t:
+                max_t = max(_round_up(max_t, 128), 128)
 
-        # pass 2: rebuild with pinned structure
-        hybrids = [EllMatrix.from_csr(
-            loc, dtype=dtype,
-            force_dia_offsets=union_offsets or None,
-            k=max_k, min_tail=max_t) for loc in locals_remapped]
+            # pass 2: rebuild with pinned structure
+            hybrids = [EllMatrix.from_csr(
+                loc, dtype=dtype,
+                force_dia_offsets=union_offsets or None,
+                k=max_k, min_tail=max_t) for loc in locals_remapped]
 
         rows_sh3 = NamedSharding(mesh, P(ROWS_AXIS, None, None))
         rows_sh2 = NamedSharding(mesh, P(ROWS_AXIS, None))
 
         def stack(getter, sharding):
             return jax.device_put(
-                jnp.stack([getter(h) for h in hybrids]), sharding)
+                np.stack([np.asarray(getter(h)) for h in hybrids]),
+                sharding)
 
         dia = None
-        dia3 = None
         if union_offsets:
             dia = stack(lambda h: h.dia_data, rows_sh3)
-            # kernel-layout copy for the shard-local Pallas DIA path
-            # (geometry is identical across shards: pinned structure)
-            from ..ops.pallas_dia import DiaSpMV
-
-            ds = DiaSpMV(union_offsets, rows_max, plan.ext_size, dtype)
-            if ds.fits and jnp.dtype(dtype).itemsize == 4:
-                rows_sh4 = NamedSharding(mesh, P(ROWS_AXIS, None, None,
-                                                 None))
-                dia3 = jax.device_put(
-                    jnp.stack([ds.pad_dia(h.dia_data) for h in hybrids]),
-                    rows_sh4)
         cols = stack(lambda h: h.cols, rows_sh3)
         vals = stack(lambda h: h.vals, rows_sh3)
         tr = stack(lambda h: h.tail_rows, rows_sh2)
@@ -259,21 +250,20 @@ class DistEllMatrix:
             dia_offsets=union_offsets, offsets=plan.offsets,
             shape=(rows_pad, cols_pad), orig_shape=orig_shape,
             nnz=nnz, local_max=plan.local_max,
-            ext_size=plan.ext_size, dia3=dia3)
+            ext_size=plan.ext_size)
 
     # ------------------------------------------------------------------
     # kernels
     # ------------------------------------------------------------------
 
-    def _local(self, dia, cols, vals, tr, tc, tv, dia3=None) -> EllMatrix:
+    def _local(self, dia, cols, vals, tr, tc, tv) -> EllMatrix:
         rows_max = self.shape[0] // self.n_shards
         return EllMatrix(
             cols=cols[0], vals=vals[0],
             tail_rows=tr[0], tail_cols=tc[0], tail_vals=tv[0],
             shape=(rows_max, self.ext_size), nnz=self.nnz,
             dia_data=dia[0] if dia is not None else None,
-            dia_offsets=self.dia_offsets,
-            dia3=dia3[0] if dia3 is not None else None)
+            dia_offsets=self.dia_offsets)
 
     def matvec(self, x: jnp.ndarray) -> jnp.ndarray:
         """y = A @ x, x sharded P('rows') with length shape[1]."""
@@ -284,12 +274,10 @@ class DistEllMatrix:
         offsets = self.offsets
         local_max = self.local_max
         has_dia = self.dia_data is not None
-        has_dia3 = self.dia3 is not None
 
         def kernel(*args):
             args = list(args)
             dia = args.pop(0) if has_dia else None
-            dia3 = args.pop(0) if has_dia3 else None
             cols, vals, tr, tc, tv, x_loc, *send_idx = args
             parts = [x_loc]
             if local_max > local_cols:
@@ -299,20 +287,17 @@ class DistEllMatrix:
                 recv = jax.lax.ppermute(buf, ROWS_AXIS, perm[k])
                 parts.append(recv)
             x_ext = jnp.concatenate(parts) if len(parts) > 1 else parts[0]
-            E = self._local(dia, cols, vals, tr, tc, tv, dia3)
+            E = self._local(dia, cols, vals, tr, tc, tv)
             return E.matvec(x_ext)
 
-        spec4 = P(ROWS_AXIS, None, None, None)
         spec3 = P(ROWS_AXIS, None, None)
         spec2 = P(ROWS_AXIS, None)
         in_specs = (((spec3,) if has_dia else ())
-                    + ((spec4,) if has_dia3 else ())
                     + (spec3, spec3, spec2, spec2, spec2, P(ROWS_AXIS))
                     + tuple(spec2 for _ in offsets))
         f = shard_map(kernel, mesh=self.mesh, in_specs=in_specs,
                       out_specs=P(ROWS_AXIS))
         args = (((self.dia_data,) if has_dia else ())
-                + ((self.dia3,) if has_dia3 else ())
                 + (self.cols, self.vals, self.tail_rows, self.tail_cols,
                    self.tail_vals, x) + self.send_idx)
         return f(*args)
@@ -368,7 +353,6 @@ class DistEllMatrix:
 
 def pad_vector(v: np.ndarray, n_pad: int, mesh: Mesh, dtype=jnp.float64):
     """Host vector → padded, row-sharded device array."""
-    out = np.zeros(n_pad, dtype=np.float64)
+    out = np.zeros(n_pad, dtype=jnp.dtype(dtype))
     out[:len(v)] = np.asarray(v)
-    return jax.device_put(jnp.asarray(out, dtype=dtype),
-                          NamedSharding(mesh, P(ROWS_AXIS)))
+    return jax.device_put(out, NamedSharding(mesh, P(ROWS_AXIS)))

@@ -1,8 +1,8 @@
 """Distributed AMG hierarchy setup over row-sharded matrix parts.
 
-TPU-native twin of hypre's ParCSR BoomerAMG setup decomposition (ref:
+Twin of hypre's ParCSR BoomerAMG setup decomposition (ref:
 SURVEY §2.9; the reference delegates to HYPRE_BoomerAMGSetup,
-/root/reference/src/internal/amg.c:864, whose strength / coarsening /
+src/internal/amg.c:864, whose strength / coarsening /
 interpolation / RAP phases are each distributed over row blocks with
 one-ring halo communication).  Here every phase operates on per-shard
 row blocks — the global matrix is NEVER materialized on any host:
@@ -556,7 +556,8 @@ def setup_hierarchy_dist(A_parts: Sequence[sp.csr_matrix], amg_args,
     restriction with the F/C relax schedule."""
     import jax.numpy as jnp
     from ..precon.amg.hierarchy import (AMGLevel, AMGState,
-                                        _pad_smoother_arrays)
+                                        _pad_smoother_arrays,
+                                        coarse_inverse)
     from ..precon.chebyshev import cheby_coefficients
     from .dist_matrix import DistEllMatrix
     from .mesh import ROWS_AXIS
@@ -780,7 +781,7 @@ def setup_hierarchy_dist(A_parts: Sequence[sp.csr_matrix], amg_args,
         if nC <= max_coarse:
             break
 
-    # coarsest level: tiny — gather to a dense inverse, exactly like the
+    # coarsest level: gathered to its exact inverse, exactly like the
     # host path (ref coarse_type 9 = Gaussian elimination)
     n_pad = int(off[-1])
     sm_c = _pad_smoother_arrays(
@@ -790,15 +791,9 @@ def setup_hierarchy_dist(A_parts: Sequence[sp.csr_matrix], amg_args,
         P=None, R=None, smooth_arrays=sm_c,
         smoother=kind, pre_sweeps=pre, post_sweeps=post,
     ))
-    dense = np.asarray(sp.vstack(A_parts).todense())
-    try:
-        inv = np.linalg.inv(dense)
-    except np.linalg.LinAlgError:
-        inv = np.linalg.pinv(dense)
-
     return AMGState(
         levels=tuple(levels),
-        coarse_inv=jnp.asarray(inv, dtype=dtype),
+        coarse_inv=coarse_inverse(sp.vstack(A_parts), dtype, mesh, n_pad),
         cycle_type=0 if int(getattr(amg_args, "cycle_type", 1)) <= 1 else 1,
         max_iter=max(1, int(amg_args.max_iter)),
         mesh=mesh,

@@ -1,6 +1,6 @@
 """Halo exchange plans for row-sharded sparse matvec.
 
-TPU-native equivalent of hypre's ParCSR communication package: the
+JAX equivalent of hypre's ParCSR communication package: the
 diag/offd split becomes a *static* schedule of ``ppermute`` shifts built
 on host at matrix-construction time.
 
@@ -13,7 +13,7 @@ extended local vector layout
 
 so the local SpMV is a plain gather afterwards.  All buffer sizes are
 static (max over shards per offset), which keeps the whole exchange
-inside one XLA program — collectives ride the ICI with zero host
+inside one XLA program — the collectives run with no host
 involvement.
 """
 

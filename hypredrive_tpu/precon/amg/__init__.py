@@ -2,7 +2,7 @@
 
 Setup (host): strength graph → PMIS/HMIS coarsening → interpolation →
 Galerkin RAP.  Solve (device): V/W cycles with ℓ1-Jacobi / Chebyshev
-smoothers and a dense coarse solve on the MXU.
+smoothers and a dense coarse solve.
 """
 
 from .precon import AMGPrecon

@@ -11,7 +11,7 @@ air_1.5 / neumann_air_{0,1,2} with ``restrict_strong_th`` /
 with the F/C relaxation schedule of ``relaxation.points: air``
 (ref: src/internal/amg.c:986-1015).
 
-TPU-first construction: local AIR (lAIR) is a batched dense solve — all
+Construction: local AIR (lAIR) is a batched dense solve — all
 C-rows with the same stencil size are gathered into one (g, m, m) batch
 and solved with a single vectorized ``np.linalg.solve`` on host during
 setup (the reference's own host/device split: setup latency-bound,

@@ -2,9 +2,8 @@
 
 The cycle is a pure function of the AMGState pytree; level count and
 smoother kinds live in pytree aux, so XLA compiles one fused program for
-the whole cycle: smoothers are SpMV+AXPY chains on the VPU, grid
-transfers are the same gather-SpMV kernel, and the coarsest solve is a
-dense matvec on the MXU.
+the whole cycle: smoothers are SpMV+AXPY chains, grid transfers are the
+same SpMV, and the coarsest solve applies an exact inverse.
 """
 
 from __future__ import annotations
@@ -12,6 +11,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+from ...ops.vectors import HIGHEST
 from .hierarchy import AMGState, AMGLevel, GS_TRI_ITERS
 
 
@@ -123,7 +123,9 @@ def _cycle(state: AMGState, lvl: int, b):
     levels = state.levels
     level = levels[lvl]
     if lvl == len(levels) - 1:
-        z = state.coarse_inv @ b
+        if hasattr(state.coarse_inv, "matvec"):     # diagonal inverse
+            return state.coarse_inv.matvec(b)
+        z = jnp.dot(state.coarse_inv, b, precision=HIGHEST)
         if state.mesh is not None:
             from jax.sharding import NamedSharding, PartitionSpec as P
             from ...parallel.mesh import ROWS_AXIS
@@ -133,7 +135,7 @@ def _cycle(state: AMGState, lvl: int, b):
         return z
 
     # named scopes label the HLO ops so profiler traces group device
-    # time per level/phase (the Caliper-region analogue on TPU; see
+    # time per level/phase (the Caliper-region analogue; see
     # scripts/profile_solve.py + scripts/analyze_caliper.py)
     with jax.named_scope(f"amg_L{lvl}_pre"):
         x = jnp.zeros_like(b)

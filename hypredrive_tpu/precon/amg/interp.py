@@ -4,7 +4,7 @@ Reference behavior: BoomerAMG prolongation types (ref: amg.c:250-274);
 the default is extended+i (6), the right choice for PMIS grids where
 F-F pairs without a common C-point occur (De Sterck-Yang-Heys).
 
-TPU-first construction: instead of hypre's per-row C loops, both
+Construction: instead of hypre's per-row C loops, both
 interpolations are built from *matrix products* on host scipy CSR (the
 "MM" formulation hypre itself uses on GPUs — mm_extended+i):
 

@@ -7,7 +7,7 @@ The reference wires RBMs through hypre's GM variants
 HYPRE_BoomerAMGSetInterpVectors / SetInterpVecVariant, used by the
 elasticity example with 6 modes).
 
-TPU-first construction: instead of hypre's per-row C loops, each F-row
+Construction: instead of hypre's per-row C loops, each F-row
 of P gets the **minimum-norm weight correction** that makes it exactly
 interpolate the coarse-restricted modes within its existing sparsity
 pattern:

@@ -4,11 +4,11 @@ Reference: src/internal/ams.c wrapping HYPRE_AMS: needs the discrete
 gradient G (n_edges × n_nodes) and vertex coordinates; internal α/β AMG
 option groups (ref: include/internal/ams.h:24-63).
 
-Native TPU construction (Hiptmair-Xu auxiliary-space decomposition):
+Native construction (Hiptmair-Xu auxiliary-space decomposition):
 
     z = S(r)  +  G · B_G⁻¹ · Gᵀ r  +  Π · B_Π⁻¹ · Πᵀ r
 
-* S — ℓ1-Jacobi smoother on the edge matrix A (VPU),
+* S — ℓ1-Jacobi smoother on the edge matrix A,
 * B_G — AMG hierarchy on the scalar potential space  Gᵀ A G,
 * Π — nodal vector interpolation (Π_d[e, v] = t_e[d]/2 from G's edge
   endpoints and coordinates), B_Π — AMG on the (3·n_nodes) vector space
@@ -133,7 +133,7 @@ class AMSState:
 def _ams_smooth(state, res):
     """relax_times sweeps of the configured smoother as an error
     correction z ≈ A⁻¹ res (ref: ams.h relax_type/relax_times/
-    relax_weight; ℓ1-Jacobi replaces hypre's ℓ1-GS on TPU, Chebyshev is
+    relax_weight; ℓ1-Jacobi replaces hypre's ℓ1-GS on device, Chebyshev is
     relax_type 16)."""
     A = state.A
     if state.smoother == "chebyshev":
@@ -255,7 +255,7 @@ def build_ams_state(A_host: sp.csr_matrix, G: sp.csr_matrix,
             comp_spaces.append((op(Pd), op(sp.csr_matrix(Pd.T)), st_d))
 
     # smoothing on A (ref: ams.h relax_type/relax_times/relax_weight
-    # — ℓ1-GS family maps to ℓ1-Jacobi on TPU; 16 = Chebyshev)
+    # — ℓ1-GS family maps to ℓ1-Jacobi on device; 16 = Chebyshev)
     relax_type = int(args.get("relax_type", 2))
     relax_times = max(1, int(args.get("relax_times", 1)))
     weight = float(args.get("relax_weight", 1.0))

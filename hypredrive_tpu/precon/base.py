@@ -1,6 +1,6 @@
 """Preconditioner protocol and dispatch.
 
-A preconditioner is (state pytree, pure apply function): the TPU
+A preconditioner is (state pytree, pure apply function): the JAX
 equivalent of hypre's (handle, solve callback) pair injected into Krylov
 (ref: src/internal/solver.c:268-337).  ``apply_fn`` must be a *module- or
 class-level* function — its identity keys the solver jit cache, so all

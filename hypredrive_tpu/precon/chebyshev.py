@@ -5,7 +5,7 @@ cheby.c:16-21): order, eig_est (CG/power iterations for the λmax
 estimate), scale (diagonal scaling), fraction (target interval lower end
 = fraction·λmax).
 
-Device design: apply is ``order`` fused SpMV+AXPY steps — ideal TPU
+Device design: apply is ``order`` fused SpMV+AXPY steps — an ideal device
 smoother (no sequential dependencies within a sweep); this is the
 relaxation the AMG hierarchy prefers on device, mirroring the reference's
 own GPU guidance (cheby/l1-Jacobi over GS).
@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 
 from .base import Preconditioner
+from ..ops.vectors import norm2
 
 
 def estimate_lambda_max(A, d_inv, iters: int = 10, seed: int = 0):
@@ -31,7 +32,7 @@ def estimate_lambda_max(A, d_inv, iters: int = 10, seed: int = 0):
     def body(_, carry):
         v, lam = carry
         w = d_inv * A.matvec(v)
-        lam = jnp.sqrt(jnp.vdot(w, w))
+        lam = norm2(w)
         v = w / jnp.maximum(lam, 1e-30)
         return (v, lam)
 

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 
 from ..core.errors import HypredrvError, ErrorCode
 from ..ops.device_matrix import EllMatrix
+from ..ops.vectors import HIGHEST
 
 
 def apply_component(kind: str, state, r):
@@ -53,7 +54,7 @@ def apply_component(kind: str, state, r):
 
         return _schwarz_apply(state, r)
     if kind == "dense":
-        return state @ r
+        return jnp.dot(state, r, precision=HIGHEST)
     if kind == "krylov":
         return _krylov_apply(state, r)
     if kind == "mgr":

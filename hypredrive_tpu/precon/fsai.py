@@ -9,13 +9,13 @@ dense SPD system  A[J_i,J_i] y = e_i  (J_i = chosen lower-triangle
 pattern ∪ {i}), then scales so (GAGᵀ)_ii = 1.  The preconditioner apply
 is z = Gᵀ(G r) — two SpMVs.
 
-TPU-first: rows are *independent*, so setup is a single batched
-Cholesky-solve over (n, k, k) padded submatrices — vmap straight onto
-the MXU; no sequential factorization anywhere.  Pattern selection
+Rows are *independent*, so setup is a single batched Cholesky-solve
+over (n, k, k) padded submatrices; no sequential factorization
+anywhere.  Pattern selection
 (static FSAI): the max_nnz_row largest-|a_ij| strong lower-triangle
 entries, thresholded (the adaptive variant grows J_i by max_steps ×
 max_step_size entries; the static pattern with the same budget is the
-TPU-friendly equivalent and matches hypre's bj-sfsai).
+device-friendly equivalent and matches hypre's bj-sfsai).
 """
 
 from __future__ import annotations
@@ -97,7 +97,7 @@ def build_fsai(A_host: sp.csr_matrix, max_nnz_row: int = 3,
     eye = np.eye(k)[None, :, :]
     sub = np.where(pad_mask, np.broadcast_to(eye, sub.shape), sub)
 
-    # batched solve A[J,J] y = e_last(valid) on device (MXU)
+    # batched solve A[J,J] y = e_last(valid) on device
     sub_d = jnp.asarray(sub, dtype=jnp.float64)
     e = np.zeros((n, k))
     e[np.arange(n), sizes - 1] = 1.0
@@ -142,7 +142,7 @@ def build_fsai_adaptive(A_host: sp.csr_matrix, max_steps: int = 5,
     max_step_size/kap_tolerance).
 
     All per-step dense solves are one batched (n, k, k) solve — the
-    row-independence that makes FSAI the TPU-native preconditioner.
+    row-independence that makes FSAI a device-parallel preconditioner.
     """
     A = sp.csr_matrix(A_host)
     A.sort_indices()

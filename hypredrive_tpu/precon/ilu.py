@@ -4,7 +4,7 @@ Reference: src/internal/ilu.c — the option surface includes the
 device-friendly switch this implementation is built around:
 ``tri_solve: off`` + ``lower_jac_iters``/``upper_jac_iters`` replaces the
 sequential triangular solves with Jacobi sweeps (exactly hypre's GPU
-path).  On TPU the sweeps are fused SpMV+AXPY chains.
+path).  On device the sweeps are fused SpMV+AXPY chains.
 
 Factorization runs on host:
   * ilu0  — native IKJ ILU(0) on the CSR pattern (vectorized per row
@@ -179,7 +179,7 @@ def _ilu_apply(state, r):
 
 def _build_schur_state(A_host: sp.csr_matrix, args, dtype,
                        n_blocks: int = 0):
-    """Interior/interface split by contiguous row blocks (the TPU-native
+    """Interior/interface split by contiguous row blocks (the device
     analogue of hypre's per-rank boundary split; ref: ilu.c GMRES-Schur).
     """
     A = sp.csr_matrix(A_host)
@@ -290,7 +290,7 @@ def _factor_to_state(A_host: sp.csr_matrix, args, dtype):
 class NSHState:
     """Newton-Schulz-Hotelling approximate inverse: z = M·r (one SpMV).
 
-    The most TPU-native member of the ILU family — the apply is a single
+    The most device-friendly member of the ILU family — the apply is a single
     gather-SpMV, no triangular solves at all (ref: ilu.c:42-57 nsh-iluk/
     nsh-ilut, hypre NSH inverse with MR initial guess)."""
 

@@ -2,9 +2,9 @@
 
 The reference realizes ``jacobi``/``gauss-seidel`` as BoomerAMG configured
 with max_levels=1 and a single relaxation (ref: src/internal/precon.c:
-256-289).  On TPU the natural equivalents:
+256-289).  On device the natural equivalents:
 
-* jacobi / l1-jacobi — pure diagonal scaling (VPU elementwise).
+* jacobi / l1-jacobi — pure diagonal scaling (elementwise).
 * gauss-seidel — hybrid ℓ1-GS: true GS is sequential, so we use the
   reference's own GPU answer (ℓ1-scaled smoothing, hypre relax types
   13/14/18) — here implemented as ℓ1-Jacobi sweeps, which is what hypre

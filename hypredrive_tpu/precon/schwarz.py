@@ -3,9 +3,9 @@
 Reference: src/internal/schwarz.c — variants mp/ad/ras-*/as-* with local
 solvers iluk/ilut/spdirect (ref vocab schwarz.c:44-70).
 
-TPU-native design: subdomains are contiguous row blocks extended by
-``overlap`` sparsity rings.  All local solves are *batched dense
-inverses* applied as one (nblk, m, m) × (nblk, m) matmul on the MXU —
+Design: subdomains are contiguous row blocks extended by ``overlap``
+sparsity rings.  All local solves are *batched dense inverses* applied
+as one (nblk, m, m) × (nblk, m) batched matmul —
 the spdirect local solver; the iluk/ilut variants use the same dense
 apply (exact local solves, a strictly stronger preconditioner with the
 same sparsity footprint at these subdomain sizes).  ``ras-*`` variants
@@ -21,13 +21,15 @@ import jax
 import jax.numpy as jnp
 
 from .base import Preconditioner
+from ..ops.vectors import HIGHEST
 from ..core.errors import HypredrvError, ErrorCode
 
 
 def _schwarz_apply(state, r):
     inv, ext_idx, own_mask, weight = state
     r_ext = r[ext_idx]                                  # (nblk, m) gather
-    z_ext = jnp.einsum("bij,bj->bi", inv, r_ext)        # batched MXU solve
+    z_ext = jnp.einsum("bij,bj->bi", inv, r_ext,        # batched solve
+                       precision=HIGHEST)
     contrib = jnp.where(own_mask, z_ext, 0.0) * weight
     z = jnp.zeros_like(r)
     z = z.at[ext_idx.ravel()].add(contrib.ravel())
@@ -40,7 +42,7 @@ def _local_ilu_inverse(sub: sp.csr_matrix, local_solver: str,
     """Dense M⁻¹ ≈ (LU)⁻¹ of one subdomain from its iluk/ilut factors
     (ref: schwarz.c local_solver_type; hypre factors each domain and
     back-solves — here the approximate factors are inverted once at
-    setup so the apply stays a batched MXU matmul)."""
+    setup so the apply stays a batched matmul)."""
     import scipy.sparse.linalg as spla
 
     k = sub.shape[0]

@@ -6,7 +6,7 @@ Mirrors the reference solver layer semantics (ref: src/internal/solver.c):
   the timed solve (ref: solver.c:627-699); the stats table's "initial" and
   "relative" residual norms come from there.
 * the preconditioner is injected as a pair (pure apply function, state
-  pytree) — the TPU equivalent of hypre's precond callback pointers
+  pytree) — the JAX equivalent of hypre's precond callback pointers
   (ref: solver.c:268-337).
 * solver cores are cached per (matvec function, precon function, static
   params) so repeated create/destroy cycles (the CLI does one per
@@ -22,7 +22,8 @@ from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import jax
-import jax.numpy as jnp
+
+from ..ops.vectors import norm2
 
 
 @dataclass
@@ -80,8 +81,8 @@ class Solver:
         A, b, x0 = system.A, system.b, system.x
         # untimed true initial residual
         r0 = b - A.matvec(x0)
-        initial_res_norm = float(jnp.sqrt(jnp.vdot(r0, r0)))
-        b_norm = float(jnp.sqrt(jnp.vdot(b, b)))
+        initial_res_norm = float(norm2(r0))
+        b_norm = float(norm2(b))
 
         if stats is not None:
             stats.annotate_begin("solve")
@@ -96,7 +97,7 @@ class Solver:
 
         # untimed true relative residual
         r = b - A.matvec(x)
-        true_norm = float(jnp.sqrt(jnp.vdot(r, r)))
+        true_norm = float(norm2(r))
         denom = b_norm if b_norm > 0 else (initial_res_norm or 1.0)
         rel = true_norm / denom if denom > 0 else true_norm
 

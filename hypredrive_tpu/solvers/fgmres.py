@@ -12,22 +12,23 @@ import jax
 import jax.numpy as jnp
 
 from .base import Solver, jitted_core
+from ..ops.vectors import HIGHEST, dot, norm2
 
 
 def _fgmres_core(matvec, precon, b, x0, rtol, atol, max_iter: int, m: int):
     dtype = b.dtype
     n = b.shape[0]
 
-    b_norm = jnp.sqrt(jnp.vdot(b, b))
+    b_norm = norm2(b)
     r0 = b - matvec(x0)
-    r0_norm = jnp.sqrt(jnp.vdot(r0, r0))
+    r0_norm = norm2(r0)
     denom = jnp.where(b_norm > 0, b_norm, jnp.where(r0_norm > 0, r0_norm, 1.0))
     threshold = jnp.maximum(rtol * denom, atol)
     history0 = jnp.full(max_iter + 1, jnp.nan, dtype=dtype).at[0].set(r0_norm)
 
     def cycle(x, total_iters, hist):
         r = b - matvec(x)
-        beta = jnp.sqrt(jnp.vdot(r, r))
+        beta = norm2(r)
         V0 = jnp.zeros((m + 1, n), dtype).at[0].set(
             jnp.where(beta > 0, r / beta, r))
         Z0 = jnp.zeros((m, n), dtype)
@@ -48,13 +49,13 @@ def _fgmres_core(matvec, precon, b, x0, rtol, atol, max_iter: int, m: int):
 
             def mgs_step(i, carry):
                 w, H = carry
-                h = jnp.where(i <= j, jnp.vdot(V[i], w), 0.0)
+                h = jnp.where(i <= j, dot(V[i], w), 0.0)
                 w = w - h * V[i]
                 H = H.at[i, j].set(h)
                 return (w, H)
 
             w, H = jax.lax.fori_loop(0, m, mgs_step, (w, H))
-            h_next = jnp.sqrt(jnp.vdot(w, w))
+            h_next = norm2(w)
             H = H.at[j + 1, j].set(h_next)
             V = V.at[j + 1].set(jnp.where(h_next > 0, w / h_next, w))
 
@@ -87,13 +88,13 @@ def _fgmres_core(matvec, precon, b, x0, rtol, atol, max_iter: int, m: int):
 
         def back_sub(k, y):
             kk = m - 1 - k
-            rhs = g[kk] - jnp.dot(H[kk, :], y)
+            rhs = g[kk] - jnp.dot(H[kk, :], y, precision=HIGHEST)
             yk = jnp.where(jnp.logical_and(kk < j, H[kk, kk] != 0),
                            rhs / H[kk, kk], 0.0)
             return y.at[kk].set(yk)
 
         y = jax.lax.fori_loop(0, m, back_sub, jnp.zeros(m, dtype))
-        dx = jnp.einsum("k,kn->n", y, Z)
+        dx = jnp.einsum("k,kn->n", y, Z, precision=HIGHEST)
         return x + dx, j, norm, hist
 
     def outer_cond(c):
@@ -105,7 +106,7 @@ def _fgmres_core(matvec, precon, b, x0, rtol, atol, max_iter: int, m: int):
         x, j, _, hist = cycle(x, total, hist)
         total = total + j
         r = b - matvec(x)
-        norm = jnp.sqrt(jnp.vdot(r, r))
+        norm = norm2(r)
         done = jnp.logical_or(norm <= threshold, j == 0)
         return (x, total, norm, done, hist)
 

@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 
 from .base import Solver, jitted_core
+from ..ops.vectors import HIGHEST, dot, norm2
 
 
 def _gmres_core(matvec, precon, b, x0, rtol, atol,
@@ -49,9 +50,9 @@ def _gmres_core(matvec, precon, b, x0, rtol, atol,
     # remaining true-residual reduction into preconditioned units via
     # the cycle-start ratio and the outer real-residual check (true
     # units) has the final word.
-    b_norm = jnp.sqrt(jnp.vdot(b, b))
+    b_norm = norm2(b)
     rt0 = b - matvec(x0)
-    r0_norm = jnp.sqrt(jnp.vdot(rt0, rt0))
+    r0_norm = norm2(rt0)
     denom = jnp.where(b_norm > 0, b_norm, jnp.where(r0_norm > 0, r0_norm, 1.0))
     threshold = jnp.maximum(rtol * denom, atol)
 
@@ -64,7 +65,7 @@ def _gmres_core(matvec, precon, b, x0, rtol, atol,
     def arnoldi_cycle(x, total_iters, r_true_norm, hist, ehist):
         """One restart cycle; returns updated x, iters, residual estimate."""
         r = precon(b - matvec(x))
-        beta = jnp.sqrt(jnp.vdot(r, r))
+        beta = norm2(r)
         # inner threshold: shrink the preconditioned estimate by the
         # factor the TRUE residual still needs (plus the floor of an
         # absolute-zero beta)
@@ -87,13 +88,13 @@ def _gmres_core(matvec, precon, b, x0, rtol, atol,
             # modified Gram-Schmidt against all basis vectors (masked ≥ j+1)
             def mgs_step(i, carry):
                 w, H = carry
-                h = jnp.where(i <= j, jnp.vdot(V[i], w), 0.0)
+                h = jnp.where(i <= j, dot(V[i], w), 0.0)
                 w = w - h * V[i]
                 H = H.at[i, j].set(h)
                 return (w, H)
 
             w, H = jax.lax.fori_loop(0, m, mgs_step, (w, H))
-            h_next = jnp.sqrt(jnp.vdot(w, w))
+            h_next = norm2(w)
             H = H.at[j + 1, j].set(h_next)
             V = V.at[j + 1].set(jnp.where(h_next > 0, w / h_next, w))
 
@@ -124,14 +125,15 @@ def _gmres_core(matvec, precon, b, x0, rtol, atol,
                 # the per-block error vs xref
                 def bs(k, y):
                     kk = m - 1 - k
-                    rhs_v = g[kk] - jnp.dot(H[kk, :], y)
+                    rhs_v = g[kk] - jnp.dot(H[kk, :], y, precision=HIGHEST)
                     yk = jnp.where(
                         jnp.logical_and(kk <= j, H[kk, kk] != 0),
                         rhs_v / H[kk, kk], 0.0)
                     return y.at[kk].set(yk)
 
                 y_j = jax.lax.fori_loop(0, m, bs, jnp.zeros(m, dtype))
-                dx_j = jnp.einsum("k,kn->n", y_j, V[:m])
+                dx_j = jnp.einsum("k,kn->n", y_j, V[:m],
+                                  precision=HIGHEST)
                 ehist = ehist.at[total_iters + j + 1].set(
                     block_err(x + dx_j))
             done = norm <= inner_threshold
@@ -146,13 +148,13 @@ def _gmres_core(matvec, precon, b, x0, rtol, atol,
         def back_sub(k, y):
             # iterate k = m-1 .. 0; only active for k < j
             kk = m - 1 - k
-            rhs = g[kk] - jnp.dot(H[kk, :], y)
+            rhs = g[kk] - jnp.dot(H[kk, :], y, precision=HIGHEST)
             yk = jnp.where(jnp.logical_and(kk < j, H[kk, kk] != 0),
                            rhs / H[kk, kk], 0.0)
             return y.at[kk].set(yk)
 
         y = jax.lax.fori_loop(0, m, back_sub, jnp.zeros(m, dtype))
-        dx = jnp.einsum("k,kn->n", y, V[:m])
+        dx = jnp.einsum("k,kn->n", y, V[:m], precision=HIGHEST)
         return x + dx, j, norm, done, hist, ehist
 
     def outer_cond(c):
@@ -175,7 +177,7 @@ def _gmres_core(matvec, precon, b, x0, rtol, atol,
             # "false convergence" guard — continue when the actual
             # residual has not met epsilon)
             r = b - matvec(x)
-            norm = jnp.sqrt(jnp.vdot(r, r))
+            norm = norm2(r)
             done = norm <= threshold
         # no progress this cycle → breakdown, stop
         done = jnp.logical_or(done, j == 0)

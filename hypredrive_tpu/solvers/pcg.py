@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 
 from .base import Solver, jitted_core
+from ..ops.vectors import dot, norm2
 
 
 def _pcg_core(matvec, precon, b, x0, rtol, atol,
@@ -24,9 +25,9 @@ def _pcg_core(matvec, precon, b, x0, rtol, atol,
     dtype = b.dtype
     r = b - matvec(x0)
     z = precon(r)
-    gamma0 = jnp.vdot(r, z)
-    b_norm = jnp.sqrt(jnp.vdot(b, b))
-    r_norm0 = jnp.sqrt(jnp.vdot(r, r)) if two_norm else jnp.sqrt(
+    gamma0 = dot(r, z)
+    b_norm = norm2(b)
+    r_norm0 = norm2(r) if two_norm else jnp.sqrt(
         jnp.abs(gamma0))
     # hypre semantics: if ||b|| == 0, scale by ||r0|| instead
     denom = jnp.where(b_norm > 0, b_norm, jnp.where(r_norm0 > 0, r_norm0, 1.0))
@@ -41,7 +42,7 @@ def _pcg_core(matvec, precon, b, x0, rtol, atol,
     def body(carry):
         x, r, z, p, gamma, i, norm, done, hist = carry
         s = matvec(p)
-        sp = jnp.vdot(s, p)
+        sp = dot(s, p)
         # guard against breakdown
         alpha = jnp.where(sp != 0, gamma / sp, 0.0)
         x = x + alpha * p
@@ -52,10 +53,10 @@ def _pcg_core(matvec, precon, b, x0, rtol, atol,
                 (i + 1) % recompute_res == 0,
                 lambda _: b - matvec(x), lambda _: r, None)
         z = precon(r)
-        gamma_new = jnp.vdot(r, z)
+        gamma_new = dot(r, z)
         beta = jnp.where(gamma != 0, gamma_new / gamma, 0.0)
         p = z + beta * p
-        norm = jnp.sqrt(jnp.vdot(r, r)) if two_norm else jnp.sqrt(
+        norm = norm2(r) if two_norm else jnp.sqrt(
             jnp.abs(gamma_new))
         hist = hist.at[i + 1].set(norm)
         done = norm <= threshold

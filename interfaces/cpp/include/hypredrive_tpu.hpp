@@ -1,8 +1,7 @@
 // C++ RAII binding for the hypredrive-tpu C API.
 //
 // Reference counterpart: interfaces/cpp/include/hypredrive.hpp (the
-// header-only hypredrive::driver class, :154).  Original TPU-native
-// design: wraps native/include/HYPREDRV_tpu.h — every C verb appears as
+// header-only hypredrive::driver class, :154).  Original design: wraps native/include/HYPREDRV_tpu.h — every C verb appears as
 // a member (coverage enforced by tests/test_capi.py::
 // test_cpp_header_covers_c_api, the analogue of the reference's
 // interfaces/cpp/tests/check_api_coverage.cmake).

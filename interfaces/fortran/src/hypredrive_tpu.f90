@@ -1,7 +1,7 @@
 ! Fortran ISO-C-binding module for the hypredrive-tpu C API.
 !
 ! Reference counterpart: interfaces/fortran/src/hypredrive.f90 (the
-! ISO-C module mirroring every HYPREDRV verb, :6).  Original TPU-native
+! ISO-C module mirroring every HYPREDRV verb, :6).  Original
 ! binding over native/include/HYPREDRV_tpu.h: handles are integer(c_int64_t),
 ! every call returns an integer(c_int32_t) status (0 = success)
 ! describable with hypredrv_error_describe.

@@ -8,7 +8,7 @@
  * CSR slab the library expects, solves, copies the solution back and
  * releases every library object before returning).  Here the library is
  * the embedded-CPython C shim (native/include/HYPREDRV_tpu.h), so no MPI
- * communicator plumbing is needed — the TPU runtime is process-global.
+ * communicator plumbing is needed — the JAX runtime is process-global.
  *
  * Usage from MATLAB/Octave:
  *     x = hypredrive_tpu_mex(A, b);                 % default PCG+AMG

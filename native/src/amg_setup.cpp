@@ -2,7 +2,7 @@
 // Native AMG setup kernels: strength graph, PMIS coarsening, extended+i
 // interpolation, Galerkin RAP.  These are the latency-bound host-side
 // graph algorithms of the hierarchy build (the solve phase runs on the
-// TPU); the semantics mirror hypredrive_tpu/precon/amg/{strength,coarsen,
+// accelerator); the semantics mirror hypredrive_tpu/precon/amg/{strength,coarsen,
 // interp}.py (which in turn mirror hypre's BoomerAMG CreateS / PMIS /
 // mm-ext+i — ref: src/internal/amg.c:250-400).
 //

@@ -1,6 +1,6 @@
 // Native IJ file I/O for hypredrive_tpu.
 //
-// TPU-native equivalent of the reference's C readers (ref:
+// Native equivalent of the reference's C readers (ref:
 // src/internal/matrix.c:142-230, src/internal/vector.c:92-210 and the
 // ASCII paths behind HYPRE_IJMatrixRead): the ASCII COO parse is the
 // hot I/O path for large matrix files and is ~20x faster here than
@@ -282,518 +282,11 @@ int hdrv_write_ij_vector_ascii(const char *path, int64_t ilower,
 
 }  // extern "C"
 
-// ---------------------------------------------------------------------------
-// Gather-plan builder (TPU SpMV setup hot path).
-//
-// Native counterpart of hypredrive_tpu/ops/gather_plan.py:build_plan —
-// the per-output-sublane window scheme: a pass gives each of the 8
-// output sublanes of a 1024-row tile its own x-sublane q0[pass*8+i];
-// entries of output block (tile, i) are grouped into subgroups
-// (x-sublane s, occurrence k within (row, s)), subgroup rank j within
-// its block = pass slot.  Two sorts + O(n) run-length walks.
-// Two-phase API so the caller (numpy) allocates the output buffers and
-// the fill writes them exactly once:
-//   h = hdrv_plan_begin(rows, cols, vals, n, n_row_tiles)
-//   hdrv_plan_np(h)                            // -> pass count
-//   hdrv_plan_fill(h, tile, first, q0, lane, val, want_f32)
-//   hdrv_plan_end(h)
-// rows/cols/vals must stay alive until hdrv_plan_fill returns.
-// ---------------------------------------------------------------------------
-
 #include <algorithm>
 #include <cstring>
 #include <thread>
 #include <utility>
 #include <vector>
-
-namespace {
-struct PlanEnt {
-  int64_t pass;
-  int32_t pos;    // i8 * 128 + lane-row within the output tile
-  int8_t lane;    // column lane within the x-sublane
-  int64_t src;    // source entry index (for the value)
-};
-struct PlanSg {
-  int64_t pass;
-  int32_t i8;
-  int32_t s;      // x-sublane
-};
-struct PlanSub {  // fast-path subgroup record (tile-local)
-  int32_t j;      // pass ordinal within the tile
-  int32_t i8;
-  int32_t s;
-};
-struct PlanState {
-  // slow (unsorted-input) path:
-  std::vector<PlanEnt> ent;
-  std::vector<PlanSg> sg;
-  // both paths:
-  std::vector<int64_t> base;  // per-tile pass offsets, size n_row_tiles+1
-  // presorted fast path — entries of a row tile occupy a contiguous
-  // input range, and the packed output is a within-tile permutation of
-  // the input, so every phase parallelizes over tile ranges:
-  bool fast = false;
-  std::vector<int64_t> tile_e0;            // entry range per tile, T+1
-  std::vector<int32_t> ej;                 // per-entry pass ordinal j
-  std::vector<std::vector<PlanSub>> subs;  // per-tile subgroups
-};
-}  // namespace
-
-extern "C" {
-
-typedef struct {
-  int64_t np_;
-  int64_t n;
-  int64_t n_row_tiles;
-  int64_t group;   // kernel group size G (pass counts padded to it)
-  const int64_t *rows;
-  const int64_t *cols;
-  const double *vals;
-  void *state;  // PlanState*
-  char err[256];
-} hdrv_plan_handle;
-
-void hdrv_plan_end(hdrv_plan_handle *h) {
-  if (!h) return;
-  delete static_cast<PlanState *>(h->state);
-  free(h);
-}
-
-// Fast path: CSR-expanded input is (row, col)-sorted, so (a) the
-// occurrence index k within (row, s) is a run length — no sort needed —
-// and (b) subgroups of an i8 block enumerate as (s ascending, k) with
-// per-s counts, a couple of linear passes over each block.  Two threads
-// split the row tiles.  Returns false only on the >512-duplicates cap.
-// kernel group size G: minimize padded_passes * stream_cost +
-// grid_steps * step_cost (slope-measured on v5e: ~7.5 ns/pass dense-
-// tile stream, ~290 ns fixed per grid step -> ratio 39).  Mirrors
-// gather_plan.pick_group.
-static int64_t pick_group_native(const std::vector<int64_t> &npass,
-                                 int64_t T) {
-  const int64_t kGroupMax = 256, kStepCost = 39;
-  int64_t maxc = 1;
-  for (int64_t t = 0; t < T; ++t)
-    if (npass[(size_t)t] > maxc) maxc = npass[(size_t)t];
-  int64_t cands[9] = {16, 32, 64, 128, kGroupMax,
-                      maxc, (maxc + 1) / 2, (maxc + 2) / 3,
-                      (maxc + 3) / 4};
-  int64_t best_g = 1;
-  int64_t best_cost = -1;
-  // evaluate in ascending order so ties keep the smaller G (matches
-  // the python chooser)
-  std::sort(cands, cands + 9);
-  for (int64_t G : cands) {
-    if (G < 1 || G > kGroupMax) continue;
-    int64_t np_g = 0;
-    for (int64_t t = 0; t < T; ++t)
-      np_g += ((npass[(size_t)t] + G - 1) / G) * G;
-    int64_t cost = np_g + (np_g / G) * kStepCost;
-    if (best_cost < 0 || cost < best_cost) {
-      best_cost = cost;
-      best_g = G;
-    }
-  }
-  return best_g;
-}
-
-static bool fast_plan_begin(hdrv_plan_handle *h, PlanState *st,
-                            const int64_t *rows, const int64_t *cols,
-                            int64_t n, int64_t T, int64_t max_s) {
-  st->tile_e0.assign((size_t)T + 1, 0);
-  {
-    int64_t cur = 0;
-    for (int64_t t = 1; t <= T; ++t) {
-      while (cur < n && (rows[cur] >> 10) < t) ++cur;
-      st->tile_e0[(size_t)t] = cur;
-    }
-  }
-  st->ej.resize((size_t)n);
-  st->subs.assign((size_t)T, {});
-  std::vector<int64_t> npass((size_t)T, 1);
-  bool err512 = false;
-
-  auto phaseA = [&](int64_t t0, int64_t t1, bool *err_flag) {
-    std::vector<int64_t> ksum((size_t)max_s + 1, 0);
-    std::vector<int32_t> touched;
-    touched.reserve(256);
-    for (int64_t t = t0; t < t1; ++t) {
-      const int64_t e0 = st->tile_e0[(size_t)t];
-      const int64_t e1 = st->tile_e0[(size_t)t + 1];
-      auto &sub = st->subs[(size_t)t];
-      int64_t npass_t = 1;
-      int64_t i = e0;
-      while (i < e1) {
-        const int64_t blk = rows[i] >> 7;
-        const int32_t i8 = (int32_t)(blk & 7);
-        int64_t bend = i;
-        while (bend < e1 && (rows[bend] >> 7) == blk) ++bend;
-        // pass 1: K_s = max (row, s)-run length per sublane window s
-        touched.clear();
-        int64_t prev_row = -1, prev_s = -1, run = 0;
-        for (int64_t e = i; e < bend; ++e) {
-          const int64_t s = cols[e] >> 7;
-          if (rows[e] == prev_row && s == prev_s) {
-            ++run;
-          } else {
-            run = 1;
-            prev_row = rows[e];
-            prev_s = s;
-          }
-          if (run > 512) {
-            *err_flag = true;
-            return;
-          }
-          if (ksum[(size_t)s] == 0) touched.push_back((int32_t)s);
-          if (run > ksum[(size_t)s]) ksum[(size_t)s] = run;
-        }
-        std::sort(touched.begin(), touched.end());
-        // prefix the per-s counts into subgroup ordinals j
-        int64_t acc = 0;
-        for (int32_t s : touched) {
-          const int64_t K = ksum[(size_t)s];
-          ksum[(size_t)s] = acc;  // now the base ordinal for this s
-          for (int64_t k = 0; k < K; ++k)
-            sub.push_back({(int32_t)(acc + k), i8, s});
-          acc += K;
-        }
-        if (acc > npass_t) npass_t = acc;
-        // pass 2: per-entry ordinal j = base_j(s) + k
-        prev_row = -1;
-        prev_s = -1;
-        run = 0;
-        for (int64_t e = i; e < bend; ++e) {
-          const int64_t s = cols[e] >> 7;
-          if (rows[e] == prev_row && s == prev_s) {
-            ++run;
-          } else {
-            run = 0;
-            prev_row = rows[e];
-            prev_s = s;
-          }
-          st->ej[(size_t)e] = (int32_t)(ksum[(size_t)s] + run);
-        }
-        for (int32_t s : touched) ksum[(size_t)s] = 0;
-        i = bend;
-      }
-      npass[(size_t)t] = npass_t;
-    }
-  };
-  {
-    const int64_t tmid = T / 2;
-    bool errA = false, errB = false;
-    std::thread th(phaseA, 0, tmid, &errA);
-    phaseA(tmid, T, &errB);
-    th.join();
-    err512 = errA || errB;
-  }
-  if (err512) {
-    snprintf(h->err, sizeof h->err, "more than 512 duplicate entries");
-    return true;  // handled (error recorded)
-  }
-
-  // kernel group size G and per-tile pass padding — same policy as
-  // gather_plan._group_plan
-  {
-    int64_t G = pick_group_native(npass, T);
-    h->group = G;
-    if (G > 1)
-      for (int64_t t = 0; t < T; ++t)
-        npass[(size_t)t] = ((npass[(size_t)t] + G - 1) / G) * G;
-  }
-  st->base.assign((size_t)T + 1, 0);
-  for (int64_t t = 0; t < T; ++t)
-    st->base[(size_t)t + 1] = st->base[(size_t)t] + npass[(size_t)t];
-  h->np_ = st->base[(size_t)T];
-  st->fast = true;
-  return true;
-}
-
-hdrv_plan_handle *hdrv_plan_begin(const int64_t *rows, const int64_t *cols,
-                                  const double *vals, int64_t n,
-                                  int64_t n_row_tiles) {
-  hdrv_plan_handle *h =
-      (hdrv_plan_handle *)calloc(1, sizeof(hdrv_plan_handle));
-  if (!h) return nullptr;
-  h->n = n;
-  h->n_row_tiles = n_row_tiles;
-  h->rows = rows;
-  h->cols = cols;
-  h->vals = vals;
-  if (n == 0) return h;
-
-  auto *st = new (std::nothrow) PlanState;
-  if (!st) {
-    snprintf(h->err, sizeof h->err, "out of memory");
-    return h;
-  }
-  h->state = st;
-
-  // rows/cols must fit 31 bits for the packed key (caller falls back to
-  // numpy otherwise).  CSR-expanded input is already (row, col)-sorted
-  // — detect that in one pass and take the tile-local parallel path
-  // (the common case from EllMatrix.from_csr).
-  bool presorted = true;
-  int64_t max_s = 0, max_row = 0;
-  for (int64_t i = 0; i < n; ++i) {
-    if (rows[i] >= (1LL << 31) || cols[i] >= (1LL << 31) ||
-        rows[i] < 0 || cols[i] < 0) {
-      snprintf(h->err, sizeof h->err, "index exceeds 31 bits");
-      return h;
-    }
-    int64_t s = cols[i] >> 7;
-    if (s > max_s) max_s = s;
-    if (rows[i] > max_row) max_row = rows[i];
-    if (i && ((rows[i] < rows[i - 1]) ||
-              (rows[i] == rows[i - 1] && cols[i] < cols[i - 1])))
-      presorted = false;
-  }
-  if ((max_row >> 10) >= n_row_tiles) {
-    snprintf(h->err, sizeof h->err, "row exceeds tile range");
-    return h;
-  }
-
-  if (presorted) {
-    fast_plan_begin(h, st, rows, cols, n, n_row_tiles, max_s);
-    return h;
-  }
-
-  std::vector<std::pair<int64_t, int64_t>> keyed;
-  keyed.reserve((size_t)n);
-  for (int64_t i = 0; i < n; ++i)
-    keyed.emplace_back((rows[i] << 31) | cols[i], i);
-  std::sort(keyed.begin(), keyed.end());
-
-  // occurrence k within (row, s); re-key by subgroup (blk, s, k)
-  std::vector<std::pair<int64_t, int64_t>> sgkey((size_t)n);
-  int64_t prev_rs = -1, k = 0, max_k = 0;
-  for (int64_t i = 0; i < n; ++i) {
-    int64_t key = keyed[(size_t)i].first;
-    int64_t e = keyed[(size_t)i].second;
-    int64_t row = key >> 31, col = key & ((1LL << 31) - 1);
-    int64_t s = col >> 7;
-    int64_t rs = (row << 24) | s;  // s < 2^24 guaranteed by col < 2^31
-    k = (rs == prev_rs) ? k + 1 : 0;
-    prev_rs = rs;
-    if (k >= 512) {
-      snprintf(h->err, sizeof h->err, "more than 512 duplicate entries");
-      return h;
-    }
-    if (k > max_k) max_k = k;
-    int64_t blk = row >> 7;
-    sgkey[(size_t)i] = {(blk << 33) | (s << 9) | k, e};
-  }
-  // sort by (blk, s, k) via three stable counting passes (LSD radix on
-  // the actual component ranges) — linear instead of O(n log n)
-  {
-    const int64_t nk = max_k + 1, ns = max_s + 1;
-    const int64_t nblk = (n_row_tiles << 3);
-    std::vector<std::pair<int64_t, int64_t>> tmp((size_t)n);
-    auto counting_pass = [&](std::vector<std::pair<int64_t, int64_t>> &src,
-                             std::vector<std::pair<int64_t, int64_t>> &dst,
-                             int shift, int64_t field_mask,
-                             int64_t n_buckets) {
-      std::vector<int64_t> cnt((size_t)n_buckets + 1, 0);
-      for (int64_t i = 0; i < n; ++i)
-        ++cnt[(size_t)((src[(size_t)i].first >> shift) & field_mask)];
-      int64_t run = 0;
-      for (size_t b = 0; b <= (size_t)n_buckets; ++b) {
-        int64_t c = cnt[b];
-        cnt[b] = run;
-        run += c;
-      }
-      for (int64_t i = 0; i < n; ++i)
-        dst[(size_t)cnt[(size_t)((src[(size_t)i].first >> shift)
-                                 & field_mask)]++] = src[(size_t)i];
-    };
-    counting_pass(sgkey, tmp, 0, (1 << 9) - 1, nk);
-    counting_pass(tmp, sgkey, 9, (1 << 24) - 1, ns);
-    counting_pass(sgkey, tmp, 33, ~0LL >> 1, nblk);
-    sgkey.swap(tmp);
-  }
-
-  // per-tile pass counts (>= 1, so every tile gets a zero-init pass)
-  std::vector<int64_t> npass((size_t)n_row_tiles, 1);
-  int64_t prev_sg = -1, prev_blk = -1, j = -1;
-  for (int64_t i = 0; i < n; ++i) {
-    int64_t key = sgkey[(size_t)i].first;
-    if (key == prev_sg) continue;
-    prev_sg = key;
-    int64_t blk = key >> 33;
-    j = (blk == prev_blk) ? j + 1 : 0;
-    prev_blk = blk;
-    int64_t t = blk >> 3;
-    if (j + 1 > npass[(size_t)t]) npass[(size_t)t] = j + 1;
-  }
-  // kernel group size G (passes fused per grid step) and per-tile pass
-  // padding to a multiple of it — same policy as gather_plan._group_plan
-  {
-    int64_t G = pick_group_native(npass, n_row_tiles);
-    h->group = G;
-    if (G > 1)
-      for (int64_t t = 0; t < n_row_tiles; ++t)
-        npass[(size_t)t] = ((npass[(size_t)t] + G - 1) / G) * G;
-  }
-  st->base.assign((size_t)n_row_tiles + 1, 0);
-  for (int64_t t = 0; t < n_row_tiles; ++t)
-    st->base[(size_t)t + 1] = st->base[(size_t)t] + npass[(size_t)t];
-  h->np_ = st->base[(size_t)n_row_tiles];
-
-  // assign passes to subgroups and entries
-  st->ent.reserve((size_t)n);
-  prev_sg = -1;
-  prev_blk = -1;
-  j = -1;
-  int64_t pass = 0;
-  for (int64_t i = 0; i < n; ++i) {
-    int64_t key = sgkey[(size_t)i].first;
-    int64_t e = sgkey[(size_t)i].second;
-    if (key != prev_sg) {
-      prev_sg = key;
-      int64_t blk = key >> 33;
-      j = (blk == prev_blk) ? j + 1 : 0;
-      prev_blk = blk;
-      pass = st->base[(size_t)(blk >> 3)] + j;
-      PlanSg g;
-      g.pass = pass;
-      g.i8 = (int32_t)(blk & 7);
-      g.s = (int32_t)((key >> 9) & ((1 << 24) - 1));
-      st->sg.push_back(g);
-    }
-    int64_t row = rows[e], col = cols[e];
-    PlanEnt pe;
-    pe.pass = pass;
-    pe.pos = (int32_t)(((row >> 7) & 7) * 128 + (row & 127));
-    pe.lane = (int8_t)(col & 127);
-    pe.src = e;
-    st->ent.push_back(pe);
-  }
-  return h;
-}
-
-int64_t hdrv_plan_np(const hdrv_plan_handle *h) { return h ? h->np_ : -1; }
-
-int64_t hdrv_plan_group(const hdrv_plan_handle *h) {
-  return h ? (h->group > 0 ? h->group : 1) : 1;
-}
-
-const char *hdrv_plan_err(const hdrv_plan_handle *h) {
-  return h ? h->err : "alloc failed";
-}
-
-// Packed output: per entry a flat slot = pass*1024 + pos (sorted
-// ascending), the x-lane and the value — the dense (NP, 8, 128) tiles
-// are assembled on DEVICE by one sorted scatter (ops/pallas_spmv.py).
-// pass_tile/pass_first (NP) and q0 (NP*8, zero-initialized by caller)
-// are written as before; slot/elane/val have length n (the entry count
-// given to hdrv_plan_begin).
-void hdrv_plan_fill_packed(const hdrv_plan_handle *h, int32_t *pass_tile,
-                           int32_t *pass_first, int32_t *q0, int32_t *slot,
-                           int8_t *elane, void *val, int want_f32) {
-  if (!h || !h->state) return;
-  const auto *st = static_cast<const PlanState *>(h->state);
-  float *val32 = want_f32 ? (float *)val : nullptr;
-  double *val64 = want_f32 ? nullptr : (double *)val;
-
-  for (int64_t t = 0; t < h->n_row_tiles; ++t) {
-    for (int64_t p = st->base[(size_t)t]; p < st->base[(size_t)t + 1]; ++p)
-      pass_tile[p] = (int32_t)t;
-    pass_first[st->base[(size_t)t]] = 1;
-  }
-
-  if (st->fast) {
-    // q0 from the per-tile subgroup records
-    for (int64_t t = 0; t < h->n_row_tiles; ++t) {
-      const int64_t b = st->base[(size_t)t];
-      for (const PlanSub &g : st->subs[(size_t)t])
-        q0[(b + g.j) * 8 + g.i8] = g.s;
-    }
-    // entries: the packed output of tile t is exactly the input range
-    // [e0, e1) reordered by (pass, pos) — a tile-local 2-pass stable
-    // counting sort, parallel over tile ranges
-    const int64_t *rows = h->rows;
-    const int64_t *cols = h->cols;
-    const double *vals = h->vals;
-    auto worker = [&](int64_t t0, int64_t t1) {
-      std::vector<int32_t> perm, tmp;
-      std::vector<int64_t> cnt_j;
-      int64_t cnt_pos[1025];
-      for (int64_t t = t0; t < t1; ++t) {
-        const int64_t e0 = st->tile_e0[(size_t)t];
-        const int64_t ne = st->tile_e0[(size_t)t + 1] - e0;
-        if (!ne) continue;
-        const int64_t b = st->base[(size_t)t];
-        const int64_t npass_t = st->base[(size_t)t + 1] - b;
-        perm.resize((size_t)ne);
-        tmp.resize((size_t)ne);
-        std::memset(cnt_pos, 0, sizeof cnt_pos);
-        auto pos_of = [&](int64_t e) -> int32_t {
-          const int64_t row = rows[e];
-          return (int32_t)(((row >> 7) & 7) * 128 + (row & 127));
-        };
-        for (int64_t i = 0; i < ne; ++i) ++cnt_pos[pos_of(e0 + i) + 1];
-        for (int b2 = 0; b2 < 1024; ++b2) cnt_pos[b2 + 1] += cnt_pos[b2];
-        for (int64_t i = 0; i < ne; ++i)
-          tmp[(size_t)cnt_pos[pos_of(e0 + i)]++] = (int32_t)i;
-        cnt_j.assign((size_t)npass_t + 1, 0);
-        for (int64_t i = 0; i < ne; ++i)
-          ++cnt_j[(size_t)st->ej[(size_t)(e0 + i)] + 1];
-        for (int64_t b2 = 0; b2 < npass_t; ++b2)
-          cnt_j[(size_t)b2 + 1] += cnt_j[(size_t)b2];
-        for (int64_t i = 0; i < ne; ++i) {
-          const int32_t idx = tmp[(size_t)i];
-          perm[(size_t)cnt_j[(size_t)st->ej[(size_t)(e0 + idx)]]++] = idx;
-        }
-        for (int64_t i = 0; i < ne; ++i) {
-          const int64_t e = e0 + perm[(size_t)i];
-          slot[e0 + i] =
-              (int32_t)((b + st->ej[(size_t)e]) * 1024 + pos_of(e));
-          elane[e0 + i] = (int8_t)(cols[e] & 127);
-          if (val32)
-            val32[e0 + i] = (float)vals[e];
-          else
-            val64[e0 + i] = vals[e];
-        }
-      }
-    };
-    const int64_t tmid = h->n_row_tiles / 2;
-    std::thread th(worker, 0, tmid);
-    worker(tmid, h->n_row_tiles);
-    th.join();
-    return;
-  }
-
-  for (const PlanSg &g : st->sg) q0[g.pass * 8 + g.i8] = g.s;
-
-  // order entries by slot (pass, pos) with two stable counting passes
-  // (pos: 1024 buckets, then pass: NP buckets) — one entry per slot by
-  // construction, so the key is unique
-  const size_t ne = st->ent.size();
-  std::vector<int32_t> ord(ne), tmp(ne);
-  {
-    int64_t cnt_pos[1025] = {0};
-    for (size_t i = 0; i < ne; ++i) ++cnt_pos[st->ent[i].pos + 1];
-    for (int b = 0; b < 1024; ++b) cnt_pos[b + 1] += cnt_pos[b];
-    for (size_t i = 0; i < ne; ++i)
-      tmp[(size_t)cnt_pos[st->ent[i].pos]++] = (int32_t)i;
-    std::vector<int64_t> cnt_pass((size_t)h->np_ + 1, 0);
-    for (size_t i = 0; i < ne; ++i) ++cnt_pass[(size_t)st->ent[i].pass + 1];
-    for (int64_t b = 0; b < h->np_; ++b)
-      cnt_pass[(size_t)b + 1] += cnt_pass[(size_t)b];
-    for (size_t i = 0; i < ne; ++i)
-      ord[(size_t)cnt_pass[(size_t)st->ent[(size_t)tmp[i]].pass]++] = tmp[i];
-  }
-  for (size_t i = 0; i < ne; ++i) {
-    const PlanEnt &pe = st->ent[(size_t)ord[i]];
-    slot[i] = (int32_t)(pe.pass * 1024 + pe.pos);
-    elane[i] = pe.lane;
-    if (val32)
-      val32[i] = (float)h->vals[pe.src];
-    else
-      val64[i] = h->vals[pe.src];
-  }
-}
-
-}  // extern "C"
 
 // ---------------------------------------------------------------------------
 // LZ4 block codec (raw block format, as LZ4_compress_default /

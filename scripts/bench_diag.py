@@ -1,91 +1,196 @@
 #!/usr/bin/env python
-"""Diagnose the V-cycle slowness: per-level layout + per-op timings."""
-import os, sys, time
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+"""SpMV layout and V-cycle diagnostics on a GPU.
+
+    python scripts/bench_diag.py [nx ...]      # default: 128 192
+
+For each 7-point Laplacian grid nx^3 (float32; float64 too at nx <= 128):
+
+* a stream triad (the bandwidth the card reaches in this run);
+* the DIA SpMV of the fine operator: time, bytes/s under the
+  minimal-traffic model (every stored array, x and y moved once), and
+  its share of the triad;
+* every AMG level's A, P and R in the layout the hierarchy picked
+  (DIA / ELL+COO tail / dense): time and bytes/s under the same model;
+* the V-cycle with the dense layout for tiny operators on and off.
+
+All per-op times are slope-timed (two rep counts of an on-device loop,
+unrolled so the loop's own per-trip cost is spread over 10 SpMVs), so
+dispatch cancels.  One JSON object per measurement goes to stdout.
+Exits non-zero without a GPU.
+"""
+
+import dataclasses
+import json
+import os
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
 import numpy as np
 
+from bench import device_record, slope_time
+
+
+def matrix_bytes(E) -> int:
+    """Minimal SpMV traffic: every stored array once, plus x and y."""
+    import jax
+
+    item = np.dtype(E.dtype).itemsize
+    stored = sum(leaf.nbytes for leaf in jax.tree_util.tree_leaves(E))
+    return stored + (E.shape[0] + E.shape[1]) * item
+
+
+def layout(E) -> str:
+    if E.dense is not None:
+        return "dense"
+    parts = []
+    if E.dia_data is not None:
+        parts.append(f"dia{len(E.dia_offsets)}")
+    if E.has_ell:
+        parts.append(f"ell{E.k}")
+    if E.has_tail:
+        parts.append(f"tail{E.tail_rows.shape[0]}")
+    return "+".join(parts)
+
+
+# SpMVs per while-loop trip: each trip of an XLA while loop on the GPU
+# costs a few µs of its own, which would otherwise be charged to the SpMV
+UNROLL = 10
+
+
+def spmv_time(E, reps=(500, 2000)) -> float:
+    """Seconds per matvec.  Square operators iterate x <- c·A·x (c keeps
+    the iterate bounded and fuses into the SpMV); rectangular ones reduce
+    y into a scalar that feeds back into x, so the loop cannot be hoisted."""
+    import jax
+    import jax.numpy as jnp
+
+    n_r, n_c = E.shape
+    x0 = jnp.ones(n_c, E.dtype)
+    if n_r == n_c:
+        c = 1.0 / float(jnp.max(E.row_l1_norms()))
+
+        def mk(r):
+            @jax.jit
+            def f(M, x):
+                return jax.lax.fori_loop(
+                    0, r, lambda _, v: c * M.matvec(v), x, unroll=UNROLL)
+            return f
+    else:
+        def mk(r):
+            @jax.jit
+            def f(M, x):
+                def body(_, v):
+                    return v + 0.0 * jnp.sum(M.matvec(v))
+                return jax.lax.fori_loop(0, r, body, x, unroll=UNROLL)
+            return f
+    return slope_time(mk, (E, x0), *reps)
+
+
+def vcycle_time(state, n) -> float:
+    import jax
+    import jax.numpy as jnp
+
+    from hypredrive_tpu.precon.amg.cycle import amg_apply
+
+    def mk(r):
+        @jax.jit
+        def f(s, v):
+            def body(_, w):
+                w = amg_apply(s, w)
+                return w / jnp.max(jnp.abs(w))
+            return jax.lax.fori_loop(0, r, body, v)
+        return f
+    b = jnp.ones(n, state.levels[0].A.dtype)
+    return slope_time(mk, (state, b), 50, 200, trials=3)
+
+
+def sparse_copy(state):
+    """The same hierarchy with every dense-stored operator in its sparse
+    DIA/ELL+COO layout (the dense layout rule switched off)."""
+    from hypredrive_tpu.ops.device_matrix import EllMatrix
+
+    def sp(E):
+        if E is None or E.dense is None:
+            return E
+        return EllMatrix.from_csr(E.to_csr(), dtype=E.dtype, layout="ell")
+
+    levels = tuple(dataclasses.replace(lv, A=sp(lv.A), P=sp(lv.P),
+                                       R=sp(lv.R)) for lv in state.levels)
+    return dataclasses.replace(state, levels=levels)
+
+
+def emit(device, **rec):
+    rec["device"] = device
+    print(json.dumps(rec), flush=True)
+
+
+def triad_gbs(dtype) -> float:
+    import jax
+    import jax.numpy as jnp
+
+    ns = 1 << 27
+    u = jnp.ones(ns, dtype)
+    v = jnp.ones(ns, dtype)
+
+    def mk(r):
+        @jax.jit
+        def f(u, v):
+            w = jax.lax.fori_loop(0, r, lambda _, w: v + 2.0 * w, u)
+            return jnp.sum(w)
+        return f
+    t = slope_time(mk, (u, v), 20, 80)
+    return ns * np.dtype(dtype).itemsize * 3 / t / 1e9
+
+
 def main():
-    import jax, jax.numpy as jnp
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/hypredrive_tpu/jax"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    import jax
+    import jax.numpy as jnp
+
+    from hypredrive_tpu.core.runtime import enable_compile_cache
+
+    enable_compile_cache()
+    device = device_record()
+    jax.config.update("jax_enable_x64", True)
 
     from hypredrive_tpu.ops.csr import laplacian_3d_7pt
     from hypredrive_tpu.ops.device_matrix import EllMatrix
     from hypredrive_tpu.precon.amg.hierarchy import setup_hierarchy
     from hypredrive_tpu.config.sections import AMG_SCHEMA
 
-    dtype = jnp.float32
-    A_host = laplacian_3d_7pt(64, dtype=np.float32)
-    state = setup_hierarchy(A_host, AMG_SCHEMA.defaults(), dtype=dtype)
+    grids = [int(a) for a in sys.argv[1:]] or [128, 192]
+    for nx in grids:
+        A_host = laplacian_3d_7pt(nx)
+        dtypes = [jnp.float32] + ([jnp.float64] if nx <= 128 else [])
+        for dtype in dtypes:
+            dname = np.dtype(dtype).name
+            triad = triad_gbs(dtype)
+            emit(device, what="triad", dtype=dname, gbs=triad)
+            A = EllMatrix.from_csr(A_host, dtype=dtype)
+            t = spmv_time(A)
+            gbs = matrix_bytes(A) / t / 1e9
+            emit(device, what="spmv_fine", nx=nx, dtype=dname,
+                 layout=layout(A), s=t, gbs=gbs, triad_share=gbs / triad,
+                 nnz_per_s=A_host.nnz / t)
+            state = setup_hierarchy(A_host, AMG_SCHEMA.defaults(),
+                                    dtype=dtype, fine_matrix=A)
+            for lvl, lv in enumerate(state.levels):
+                for name, E in (("A", lv.A), ("P", lv.P), ("R", lv.R)):
+                    if E is None or (lvl == 0 and name == "A"):
+                        continue
+                    t = spmv_time(E, reps=(1000, 4000))
+                    emit(device, what="spmv_level", nx=nx, dtype=dname,
+                         level=lvl, op=name, shape=list(E.shape),
+                         nnz=E.nnz, layout=layout(E), s=t,
+                         gbs=matrix_bytes(E) / t / 1e9)
+            t_on = vcycle_time(state, A_host.shape[0])
+            t_off = vcycle_time(sparse_copy(state), A_host.shape[0])
+            emit(device, what="vcycle", nx=nx, dtype=dname,
+                 levels=len(state.levels), dense_rule_on_s=t_on,
+                 dense_rule_off_s=t_off)
+            del state, A
 
-    # hierarchy composition (host-side print)
-    print("lvl |     n    |   nnz    | D(dia) |  k(ell) | tail", flush=True)
-    for i, lvl in enumerate(state.levels):
-        A = lvl.A
-        print(f"{i:3d} | {A.shape[0]:8d} | {A.nnz:8d} | "
-              f"{len(A.dia_offsets):6d} | {A.k:7d} | {A.tail_rows.shape[0]}",
-              flush=True)
-        P = getattr(lvl, "P", None)
-        if P is not None:
-            print(f"    |  P: {P.shape} nnz={P.nnz} D={len(P.dia_offsets)} "
-                  f"k={P.k} tail={P.tail_rows.shape[0]}", flush=True)
-
-    def timed_loop(fn, x0, reps):
-        @jax.jit
-        def loop(x):
-            return jax.lax.fori_loop(0, reps, lambda i, a: fn(a), x)
-        loop(x0)  # compile
-        best = float("inf")
-        for _ in range(3):
-            t0 = time.perf_counter()
-            np.asarray(loop(x0))
-            best = min(best, time.perf_counter() - t0)
-        return best / reps
-
-    # dispatch+readback overhead
-    t_over = timed_loop(lambda a: a + 1.0, jnp.zeros((8, 128), dtype), 1)
-    print(f"overhead (1-op loop + readback): {t_over*1e3:.2f} ms", flush=True)
-
-    # saxpy with enough reps
-    n = 1 << 22
-    x = jnp.ones(n, dtype)
-    t = timed_loop(lambda a: 1.000001 * a + 0.5, x, 2000)
-    print(f"saxpy 16MB/rep: {t*1e6:.1f} us  {2*n*4/t/1e9:.0f} GB/s", flush=True)
-
-    # per-level matvec cost
-    for i, lvl in enumerate(state.levels):
-        A = lvl.A
-        xi = jnp.ones(A.shape[1], dtype)
-        reps = 2000 if i else 500
-        t = timed_loop(lambda v: A.matvec(v)[:A.shape[1]] if A.shape[0] != A.shape[1] else A.matvec(v), xi, reps)
-        print(f"matvec lvl{i}: {t*1e6:9.1f} us  {A.nnz/t/1e9:6.2f} Gnnz/s",
-              flush=True)
-
-    # pure gather cost at level-0 scale
-    n0 = A_host.shape[0]
-    idx = jnp.asarray(np.random.randint(0, n0, (n0, 7)), jnp.int32)
-    xg = jnp.ones(n0, dtype)
-    t = timed_loop(lambda v: jnp.sum(v[idx], axis=1) * 1e-6 + v, xg, 200)
-    print(f"gather(n,7): {t*1e6:9.1f} us  {7*n0/t/1e9:6.2f} Gidx/s", flush=True)
-
-    # minimal pallas probe
-    try:
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-
-        def k(x_ref, o_ref):
-            o_ref[:] = x_ref[:] * 2.0
-
-        y = pl.pallas_call(
-            k, out_shape=jax.ShapeDtypeStruct((8, 128), dtype),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
-            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        )(jnp.ones((8, 128), dtype))
-        print("pallas minimal: OK", np.asarray(y)[0, 0], flush=True)
-    except Exception as e:
-        print(f"pallas minimal FAILED: {type(e).__name__}: {str(e)[:300]}",
-              flush=True)
 
 if __name__ == "__main__":
     main()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Coverage-guided mutation fuzzer for the input-handling surfaces.
 
-TPU-repo equivalent of the reference's libFuzzer/AFL harness
+This repo's equivalent of the reference's libFuzzer/AFL harness
 (ref: tests/fuzz/harness.c + .github/workflows/fuzz.yml): the same five
 modes — parse (YAML), matrix, vector, lsseq (binary readers), comp
 (codec blobs) — driven by an in-process mutation loop with *edge

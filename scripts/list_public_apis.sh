@@ -4,7 +4,7 @@ set -euo pipefail
 # List the public C API surface (one symbol per line) from the shim
 # header — the count is the parity number checked against the reference
 # (ref: scripts/list_public_apis.sh; 79 exported HYPREDRV_* functions
-# in the reference, 89 here including the TPU-specific additions).
+# in the reference, 89 here including this framework's additions).
 #
 # Usage: scripts/list_public_apis.sh [header]
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Weak/strong scaling sweep over TPU chips (or a virtual CPU mesh).
+"""Weak/strong scaling sweep over accelerator devices (or a virtual CPU mesh).
 
 Equivalent of the reference's scripts/node_scaling.sh + perf_laplacian.sh
 (ref: docs/usrman-src/performance.rst:83-186): runs CG+AMG on generated

@@ -1,8 +1,9 @@
 """Profile AMG setup + V-cycle phases on the current backend.
 
 Breaks the 64^3 Laplacian bench's `amg_setup_s` into:
-host graph work (strength/coarsen/interp/RAP), plan building,
-device transfer, and first-cycle compile; then times the V-cycle.
+host graph work (strength/coarsen/interp/RAP), the full setup with
+device layouts and transfer, and first-cycle compile; then times the
+V-cycle.
 
 Usage: python scripts/profile_setup.py [grid_n]
 """
@@ -75,35 +76,7 @@ def main():
     print(f"host graph total: {t_host:.3f}s ({len(host_levels)+1} levels)",
           flush=True)
 
-    # --- phase 2: plan building (host) per level ---
-    from hypredrive_tpu.ops.gather_plan import build_plan, plan_stats
-
-    t0 = time.perf_counter()
-    plan_bytes = 0
-    for i, (A_lvl, P_lvl) in enumerate(host_levels):
-        for name, M in (("A", A_lvl), ("P", P_lvl),
-                        ("R", sp.csr_matrix(P_lvl.T))):
-            Mc = sp.csr_matrix(M)
-            Mc.sum_duplicates()
-            coo = Mc.tocoo()
-            # mimic device_matrix: DIA extraction then plan the rest
-            ts = time.perf_counter()
-            plan = build_plan(coo.row.astype(np.int64),
-                              coo.col.astype(np.int64), coo.data,
-                              M.shape[0], M.shape[1])
-            npass, fill = plan_stats(plan)
-            from hypredrive_tpu.ops.gather_plan import plan_nbytes
-            b = plan_nbytes(plan)
-            plan_bytes += b
-            if i < 3 or name == "A":
-                print(f"  lvl {i} {name}: nnz={Mc.nnz} passes={npass} "
-                      f"fill={fill:.2f} bytes={b/1e6:.1f}MB "
-                      f"t={time.perf_counter()-ts:.3f}s", flush=True)
-    t_plan = time.perf_counter() - t0
-    print(f"plan building total: {t_plan:.3f}s  bytes={plan_bytes/1e6:.1f}MB",
-          flush=True)
-
-    # --- phase 3: full setup_hierarchy (includes transfer) ---
+    # --- phase 2: full setup_hierarchy (includes transfer) ---
     t0 = time.perf_counter()
     state = H.setup_hierarchy(A, args, dtype=jnp.float32)
     jax.block_until_ready(jax.tree_util.tree_leaves(state)[0])
@@ -111,7 +84,7 @@ def main():
     print(f"setup_hierarchy total: {t_setup:.3f}s", flush=True)
     print(H.hierarchy_summary(state), flush=True)
 
-    # --- phase 4: cycle compile + run ---
+    # --- phase 3: cycle compile + run ---
     from hypredrive_tpu.precon.amg.cycle import amg_apply
 
     b = jnp.ones(A.shape[0], jnp.float32)

@@ -4,7 +4,7 @@
 Equivalent of the reference's scripts/spmat_reorder.py: loads any
 supported matrix format, applies a symmetric permutation, and writes the
 result back in IJ ASCII or binary form (with the permuted RHS when
-given).  Bandwidth reduction helps blocked SpMV locality on TPU just as
+given).  Bandwidth reduction helps blocked SpMV locality on the device just as
 it helps cache locality on CPU.
 
 Usage:

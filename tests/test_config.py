@@ -47,7 +47,7 @@ def test_parse_ex1_style():
     assert amg.coarsening.strong_th == 0.25
     assert amg.coarsening.max_levels == 25
     assert amg.interpolation.prolongation_type == 6  # extended+i
-    assert amg.relaxation.down_type == 16  # chebyshev (TPU default)
+    assert amg.relaxation.down_type == 16  # chebyshev (device default)
 
 
 def test_solver_nested_map():

@@ -87,68 +87,6 @@ def test_scientific_and_negative(tmp_path):
     assert np.allclose(A.toarray(), [[-1.5e-3, 0], [0, 2e4]])
 
 
-def test_native_gather_plan_matches_numpy():
-    """The C++ planner must produce the same pass schedule as numpy."""
-    import scipy.sparse as sp
-    from hypredrive_tpu.io import native
-    from hypredrive_tpu.ops import gather_plan as gp
-
-    A = sp.random(3000, 2500, density=0.01, random_state=9, format="coo")
-    A.data[:] = np.random.default_rng(9).standard_normal(len(A.data))
-    assert native.get_lib() is not None
-
-    nat = gp.build_plan(A.row, A.col, A.data, 3000, 2500)  # native path
-    import unittest.mock as mock
-    with mock.patch("hypredrive_tpu.io.native.build_gather_plan",
-                    return_value=None):
-        ref = gp.build_plan(A.row, A.col, A.data, 3000, 2500)
-
-    assert nat.num_passes == ref.num_passes
-    assert nat.group == ref.group
-    assert np.array_equal(nat.pass_tile, ref.pass_tile)
-    assert np.array_equal(nat.pass_first, ref.pass_first)
-    assert np.array_equal(nat.q0, ref.q0)
-    assert np.array_equal(nat.lane, ref.lane)
-    assert np.allclose(nat.val, ref.val)
-
-
-def test_native_gather_plan_presorted_fast_path_matches_numpy():
-    """CSR-expanded (row, col)-sorted input takes the tile-parallel fast
-    path in the C++ planner — it must produce the identical plan."""
-    import scipy.sparse as sp
-    from hypredrive_tpu.io import native
-    from hypredrive_tpu.ops import gather_plan as gp
-
-    assert native.get_lib() is not None
-    rng = np.random.default_rng(3)
-    for m, n, dens in [(3000, 2500, 0.01), (1024, 4096, 0.03),
-                       (130, 130, 0.3)]:
-        A = sp.random(m, n, density=dens, random_state=rng, format="csr")
-        A.sum_duplicates()
-        A.sort_indices()
-        rows = np.repeat(np.arange(m), np.diff(A.indptr)).astype(np.int64)
-        cols = A.indices.astype(np.int64)
-
-        nat = gp.build_plan(rows, cols, A.data, m, n)
-        import unittest.mock as mock
-        with mock.patch("hypredrive_tpu.io.native.build_gather_plan",
-                        return_value=None):
-            ref = gp.build_plan(rows, cols, A.data, m, n)
-
-        assert nat.num_passes == ref.num_passes
-        assert nat.group == ref.group
-        assert np.array_equal(nat.pass_tile, ref.pass_tile)
-        assert np.array_equal(nat.pass_first, ref.pass_first)
-        assert np.array_equal(nat.q0, ref.q0)
-        assert np.array_equal(nat.slot, ref.slot)
-        assert np.array_equal(nat.elane, ref.elane)
-        assert np.allclose(nat.evals, ref.evals)
-
-
-# ---------------------------------------------------------------------------
-# Native AMG setup kernels (native/src/amg_setup.cpp) vs numpy twins
-# ---------------------------------------------------------------------------
-
 def _rand_spd(n, seed, density=0.01, dtype=np.float64):
     rng = np.random.default_rng(seed)
     A = sp.random(n, n, density=density, random_state=rng, format="csr")
